@@ -2,8 +2,9 @@
 with a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, keyed on
-a hash of the source and the compile command, so a changed source is
-rebuilt and an unchanged one is built once per checkout. Nothing is built
+a hash of the source, the headers beside it (``csrc/*.cuh``) and the
+compile command, so a changed source or header is rebuilt and an
+unchanged one is built once per checkout. Nothing is built
 at import: ``load`` builds on first use, and ``build`` starts one ``nvcc``
 per missing library, all at once, and waits for every one.
 """
@@ -44,9 +45,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:

@@ -1,32 +1,41 @@
-"""Kernel K2: one GF(2^8) Reed-Solomon extend pass, and its plain version.
+"""Kernel K2: GF(2^8) Reed-Solomon extension of lines of shares, and its
+plain version.
 
-`extend_pass` launches csrc/rs_extend.cu on a CUDA tensor and takes the
-plain version `extend_pass_ref` on a CPU tensor. It replaces the TPU
-kernel celestia_app_tpu/ops/rs_pallas.py:_extend_pass_kernel: (k, k, 512)
-u8 data shards -> (k, k, 512) u8 parity, parity_bits = (B @ data_bits)
-mod 2 per row and byte column, B = leopard.bit_matrix(k) (8k x 8k).
+`extend_lines` launches csrc/rs_extend.cu on CUDA tensors and takes the
+plain version on CPU tensors. It replaces the TPU kernel
+celestia_app_tpu/ops/rs_pallas.py:_extend_pass_kernel: for each line of k
+data shards (512 bytes each) the k parity shards, parity_bits =
+(A @ data_bits) mod 2 per byte column, A = leopard.bit_matrix(k) (8k x 8k).
+Bits of a byte column are LSB-first, bit 8*shard + b, as in the
+reference's ops/rs.py:bytes_to_bits.
 
-B travels packed: (8k, kwp) int32 rows, bit q of row p at word q // 32,
-bit q % 32, zero-padded to kwp = max(4, k/4) words (ops/rs.py:
-bit_matrix_from_numpy). Bits of a byte column are LSB-first, bit
-8*shard + b, as in the reference's ops/rs.py:bytes_to_bits.
+A travels as the kernel's operand: (kpad, kpad) uint8 0/1, kpad =
+max(128, 8k), A in its top-left 8k x 8k block and zeros elsewhere
+(ops/rs.py builds it once per (k, device)). A launch takes one or two line
+groups, each a (source, destination) pair of (lines, k, 512) uint8 views
+whose line and shard strides are any positive multiples of 512: the
+kernel reads the sources and writes the destinations in place.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from celestia_app_tpu_torch import appconsts, cuda_build
 
 SHARE = appconsts.SHARE_SIZE
 MAX_K = 128  # the GF(2^8) code covers 256 total shards
+TILE = 128  # rows and K of the operand are padded to this
+MAX_GROUPS = 2
 
 
-def words_per_vector(k: int) -> int:
-    """Packed 32-bit words per 8k-bit vector, padded to a whole uint4."""
-    return max(4, k // 4)
+def padded(k: int) -> int:
+    """Side of K2's operand for a k-shard code: 8k rounded up to a tile."""
+    return max(TILE, 8 * k)
 
 
 def bytes_to_bits(x: torch.Tensor) -> torch.Tensor:
@@ -44,63 +53,156 @@ def bits_to_bytes(b: torch.Tensor) -> torch.Tensor:
     return (b * weights).sum(dim=-2).to(torch.uint8)
 
 
-def unpack_bit_matrix(packed: torch.Tensor, k: int) -> torch.Tensor:
-    """(8k, kwp) int32 packed rows -> (8k, 8k) float32 0/1 matrix."""
-    by = packed.contiguous().view(torch.uint8)  # (8k, 4 * kwp), little-endian words
-    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
-    bits = (by.unsqueeze(-1) >> shifts) & 1  # (8k, 4 * kwp, 8)
-    return bits.reshape(8 * k, -1)[:, : 8 * k].to(torch.float32)
-
-
-def extend_pass_ref(x: torch.Tensor, bit_mat: torch.Tensor) -> torch.Tensor:
-    """Plain version of one pass. float32 0/1 operands with torch.matmul
-    are exact: each dot product sums at most 8k <= 1024 < 2^24 ones."""
-    k = x.shape[0]
-    bmat = unpack_bit_matrix(bit_mat, k)
-    acc = torch.matmul(bmat, bytes_to_bits(x).to(torch.float32))  # (k, 8k, S)
+def extend_pass_ref(x: torch.Tensor, operand: torch.Tensor) -> torch.Tensor:
+    """Plain version: (lines, k, 512) uint8 data shards, any strides ->
+    (lines, k, 512) parity. float32 0/1 operands with torch.matmul are
+    exact: each dot product sums at most 8k <= 1024 < 2^24 ones."""
+    k = x.shape[-2]
+    a = operand[: 8 * k, : 8 * k].to(torch.float32)
+    acc = torch.matmul(a, bytes_to_bits(x).to(torch.float32))  # (lines, 8k, S)
     return bits_to_bytes(acc.to(torch.int32) & 1)
 
 
+def _check_operand(operand: torch.Tensor, k: int, device: torch.device) -> None:
+    side = padded(k)
+    if operand.dtype != torch.uint8 or operand.shape != (side, side):
+        raise ValueError(f"operand must be ({side}, {side}) uint8, got {tuple(operand.shape)} {operand.dtype}")
+    if not operand.is_contiguous():
+        raise ValueError("operand must be contiguous")
+    if operand.device != device:
+        raise ValueError(f"operand on {operand.device}, lines on {device}")
+
+
+def _layout(view: torch.Tensor, role: str) -> tuple[int, int, int, int, int]:
+    """(first share slot, lines, line stride, k, shard stride) of a line
+    view, in 512-byte share slots of its storage."""
+    if view.dtype != torch.uint8 or view.dim() != 3 or view.shape[2] != SHARE:
+        raise ValueError(f"{role} must be (lines, k, {SHARE}) uint8, got {tuple(view.shape)} {view.dtype}")
+    lines, k, _ = view.shape
+    line_stride, shard_stride, byte_stride = view.stride()
+    if byte_stride != 1 or view.storage_offset() % SHARE:
+        raise ValueError(f"{role}: the bytes of a share must be contiguous and share-aligned")
+    if min(line_stride, shard_stride) < SHARE or line_stride % SHARE or shard_stride % SHARE:
+        raise ValueError(f"{role}: line and shard strides must be positive multiples of {SHARE}, "
+                         f"got {view.stride()}")
+    return view.storage_offset() // SHARE, lines, line_stride // SHARE, k, shard_stride // SHARE
+
+
+def _slots(layout: tuple[int, int, int, int, int]) -> np.ndarray:
+    first, lines, line_stride, k, shard_stride = layout
+    return (first + np.arange(lines)[:, None] * line_stride + np.arange(k)[None, :] * shard_stride).ravel()
+
+
+@functools.lru_cache(maxsize=256)
+def _disjoint(a: tuple, b: tuple) -> bool:
+    """Whether two line views of one storage share no share slot."""
+    return not np.intersect1d(_slots(a), _slots(b)).size
+
+
+@functools.lru_cache(maxsize=256)
+def _no_self_overlap(a: tuple) -> bool:
+    return np.unique(_slots(a)).size == a[1] * a[3]
+
+
+def _check_groups(groups) -> int:
+    """Validates the line groups of one launch and returns k."""
+    if not 1 <= len(groups) <= MAX_GROUPS:
+        raise ValueError(f"a launch takes 1 to {MAX_GROUPS} line groups, got {len(groups)}")
+    views = []
+    for src, dst in groups:
+        s, d = _layout(src, "source"), _layout(dst, "destination")
+        if src.shape != dst.shape:
+            raise ValueError(f"source {tuple(src.shape)} and destination {tuple(dst.shape)} differ")
+        views.append((src, s, False))
+        views.append((dst, d, True))
+    k = groups[0][0].shape[1]
+    if any(src.shape[1] != k for src, _ in groups):
+        raise ValueError("all line groups of a launch must have the same k")
+    if k & (k - 1) or not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be a power of two <= {MAX_K}, got {k}")
+    dev = groups[0][0].device
+    if any(v.device != dev for v, _, _ in views):
+        raise ValueError("all lines of a launch must be on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    for i, (a, la, a_dst) in enumerate(views):
+        if a_dst and not _no_self_overlap(la):
+            raise ValueError("a destination overlaps itself")
+        for b, lb, b_dst in views[i + 1:]:
+            if not (a_dst or b_dst):
+                continue
+            same = a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+            if same and not _disjoint(la, lb):
+                raise ValueError("a destination overlaps a source or another destination")
+    return k
+
+
 def _entry():
-    fn = cuda_build.load("rs_extend").rs_extend_pass
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    fn = cuda_build.load("rs_extend").rs_extend_lines
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def extend_pass(x: torch.Tensor, bit_mat: torch.Tensor) -> torch.Tensor:
-    """(k, k, 512) uint8 data shards per row -> (k, k, 512) uint8 parity.
+def extend_lines(groups, operand: torch.Tensor) -> None:
+    """Writes the parity of every source line into its destination, in
+    place: `groups` is a sequence of one or two (source, destination)
+    pairs of (lines, k, 512) uint8 views; destinations overlap nothing
+    else of the launch.
 
-    On a CUDA tensor this launches K2 and counts the launch in
-    ``extend_pass.launches``; on a CPU tensor it is the plain version."""
-    if x.dtype != torch.uint8 or x.dim() != 3:
-        raise ValueError(f"x must be (k, k, {SHARE}) uint8, got {tuple(x.shape)} {x.dtype}")
-    k = x.shape[0]
-    if x.shape != (k, k, SHARE) or k & (k - 1) or not 1 <= k <= MAX_K:
-        raise ValueError(f"x must be (k, k, {SHARE}) with k a power of two <= {MAX_K}, got {tuple(x.shape)}")
-    kwp = words_per_vector(k)
-    if bit_mat.dtype != torch.int32 or bit_mat.shape != (8 * k, kwp):
-        raise ValueError(f"bit_mat must be ({8 * k}, {kwp}) int32 packed rows, got {tuple(bit_mat.shape)} {bit_mat.dtype}")
-    if bit_mat.device != x.device:
-        raise ValueError(f"bit_mat on {bit_mat.device}, x on {x.device}")
-    if not (x.is_contiguous() and bit_mat.is_contiguous()):
-        raise ValueError("x and bit_mat must be contiguous")
-    if x.device.type == "cpu":
-        return extend_pass_ref(x, bit_mat)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    out = torch.empty_like(x)
+    On CUDA tensors this is one launch of K2, counted in
+    ``extend_lines.launches``; on CPU tensors it is the plain version."""
+    groups = tuple(groups)
+    k = _check_groups(groups)
+    dev = groups[0][0].device
+    _check_operand(operand, k, dev)
+    if dev.type == "cpu":
+        parity = [extend_pass_ref(src, operand) for src, _ in groups]
+        for (_, dst), p in zip(groups, parity):
+            dst.copy_(p)
+        return
+    desc = (ctypes.c_longlong * (7 * len(groups)))()
+    for g, (src, dst) in enumerate(groups):
+        desc[7 * g: 7 * g + 7] = [src.data_ptr(), dst.data_ptr(), src.stride(0), src.stride(1),
+                                  dst.stride(0), dst.stride(1), src.shape[0]]
     fn = _entry()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), bit_mat.data_ptr(), out.data_ptr(), k, kwp, stream)
+        err = fn(desc, len(groups), operand.data_ptr(), k, stream)
     if err != 0:
-        raise RuntimeError(f"rs_extend_pass launch failed: CUDA error {err}")
-    extend_pass.launches += 1
+        raise RuntimeError(f"rs_extend_lines launch failed: CUDA error {err}")
+    extend_lines.launches += 1
+
+
+extend_lines.launches = 0
+
+
+def extend_pass(x: torch.Tensor, operand: torch.Tensor) -> torch.Tensor:
+    """(k, k, 512) uint8 data shards per row -> (k, k, 512) uint8 parity in
+    a fresh tensor: one launch of K2 over k contiguous lines."""
+    if x.dtype != torch.uint8 or x.dim() != 3 or x.shape != (x.shape[0], x.shape[0], SHARE):
+        raise ValueError(f"x must be (k, k, {SHARE}) uint8, got {tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    out = torch.empty_like(x)
+    extend_lines(((x, out),), operand)
     return out
 
 
-extend_pass.launches = 0
+def extend_eds(eds: torch.Tensor, launch: str, operand: torch.Tensor) -> None:
+    """One of the two in-place launches that extend the square in
+    eds[:k, :k]: "rows_cols" (rows of Q0 -> Q1, columns of Q0 -> Q2, read
+    and written through transposed views) or "q3" (rows of Q2 -> Q3)."""
+    n = eds.shape[0]
+    if eds.dtype != torch.uint8 or eds.shape != (n, n, SHARE) or n % 2 or not eds.is_contiguous():
+        raise ValueError(f"eds must be a contiguous (2k, 2k, {SHARE}) uint8 tensor, got "
+                         f"{tuple(eds.shape)} {eds.dtype}")
+    k = n // 2
+    if launch == "rows_cols":
+        q0 = eds[:k, :k]
+        groups = ((q0, eds[:k, k:]), (q0.transpose(0, 1), eds[k:, :k].transpose(0, 1)))
+    elif launch == "q3":
+        groups = ((eds[k:, :k], eds[k:, k:]),)
+    else:
+        raise ValueError(f"launch must be 'rows_cols' or 'q3', got {launch!r}")
+    extend_lines(groups, operand)

@@ -15,14 +15,19 @@ final line is never printed):
 2. kernel K1 (SHA-256 compression) against its plain version on the card,
    at the main path's message lengths, N = 65,536 and a ragged N = 1,000,
    plus digests against hashlib;
-3. kernel K2 (one RS extend pass) against its plain version on the card at
-   k = 1, 2, 4, 32, 128: each pass and the whole extended square;
+3. kernel K2 (RS extension of lines, int8 tensor-core product) against its
+   plain version on the card at every k = 1, 2, 4, ..., 128, on random,
+   all-0xFF and all-zero squares: the row launch into a fresh tensor, the
+   in-place column launch, the two in-place launches of the square
+   extension (Q1 and Q2, then Q3) and the whole extended square;
 4. the main path at full width: a seeded block of txs and PFBs through
    square.build (k = 128), shares_to_ods and new_dah_from_ods on cuda, with
-   both launch counters read around it; the data root against the port's
-   own CPU path, and the reference golden hashes;
+   both launch counters read around it (19 K1 and 2 K2 launches); the data
+   root against the port's own CPU path, and the reference golden hashes;
 5. times with CUDA events after warm-up: the block, each kernel at the main
-   path's shapes, each plain version, and K2's library yardstick; and a
+   path's shapes, each plain version, K2's library yardsticks (fp16
+   torch.matmul and torch._int_mm of the same product) and the two-launch
+   extension; the tensor-core instructions in K2's SASS (cuobjdump); and a
    torch.profiler trace of the block for its device busy time by kernel.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -35,6 +40,8 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -50,7 +57,8 @@ SEED = 0
 K_MAIN = 128
 K1_CHECK_LENGTHS = (542, 181, 91, 65)  # NMT leaf, NMT inner, Merkle leaf, Merkle inner
 K1_CHECK_COUNTS = (65536, 1000)  # the leaf level at k = 128, and a ragged N
-K2_CHECK_KS = (1, 2, 4, 32, 128)
+K2_CHECK_KS = (1, 2, 4, 8, 16, 32, 64, 128)
+K2_PATTERNS = ("random", "ones", "zeros")  # all-0xFF puts every s32 sum at its largest
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet, dense
 # rates). The card has no SHA or GF(2) unit:
@@ -109,7 +117,7 @@ def sha256_bound_ms(nblocks: int, n: int) -> tuple[float, str]:
 
 def rs_pass_bound_ms(k: int) -> tuple[float, str]:
     ops_s = 2 * (8 * k) ** 2 * k * appconsts.SHARE_SIZE / INT8_TENSOR_OPS_PER_S
-    bytes_s = (2 * k * k * appconsts.SHARE_SIZE + 8 * k * 4 * rs_kernel.words_per_vector(k)) / HBM_BYTES_PER_S
+    bytes_s = (2 * k * k * appconsts.SHARE_SIZE + rs_kernel.padded(k) ** 2) / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
@@ -134,13 +142,20 @@ def realistic_block(seed: int, max_square: int) -> tuple[list[bytes], list[squar
     return txs, pfbs
 
 
-def extend_plain(ods: torch.Tensor, bit_mat: torch.Tensor) -> torch.Tensor:
-    """The extended square through K2's plain version, in the order of
-    rs.extend_square_fn."""
-    q1 = rs_kernel.extend_pass_ref(ods, bit_mat)
-    q2 = rs_kernel.extend_pass_ref(ods.transpose(0, 1).contiguous(), bit_mat).transpose(0, 1).contiguous()
-    q3 = rs_kernel.extend_pass_ref(q2, bit_mat)
+def extend_plain(ods: torch.Tensor, operand: torch.Tensor) -> torch.Tensor:
+    """The extended square through K2's plain version: Q1 from the rows of
+    Q0, Q2 from its columns, Q3 from the rows of Q2."""
+    q1 = rs_kernel.extend_pass_ref(ods, operand)
+    q2 = rs_kernel.extend_pass_ref(ods.transpose(0, 1), operand).transpose(0, 1)
+    q3 = rs_kernel.extend_pass_ref(q2, operand)
     return torch.cat([torch.cat([ods, q1], dim=1), torch.cat([q2, q3], dim=1)], dim=0)
+
+
+def square_of(pattern: str, k: int, rng: np.random.Generator, dev: torch.device) -> torch.Tensor:
+    shape = (k, k, appconsts.SHARE_SIZE)
+    if pattern == "random":
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    return torch.full(shape, 0xFF if pattern == "ones" else 0, dtype=torch.uint8, device=dev)
 
 
 def check_sha256(dev: torch.device, rng: np.random.Generator) -> int:
@@ -167,24 +182,64 @@ def check_sha256(dev: torch.device, rng: np.random.Generator) -> int:
 def check_rs(dev: torch.device, rng: np.random.Generator) -> int:
     worst = 0
     for k in K2_CHECK_KS:
-        ods = torch.from_numpy(rng.integers(0, 256, (k, k, appconsts.SHARE_SIZE), dtype=np.uint8)).to(dev)
-        bit_mat = rs.bit_matrix_from_numpy(leopard.bit_matrix(k), dev)
-        q2 = rs_kernel.extend_pass_ref(ods.transpose(0, 1).contiguous(), bit_mat).transpose(0, 1).contiguous()
+        operand = rs.bit_operand(k, dev)
+        require(torch.equal(operand[: 8 * k, : 8 * k].cpu(), torch.from_numpy(leopard.bit_matrix(k)).to(torch.uint8)),
+                f"K2 operand differs from leopard.bit_matrix({k})")
         errs = {}
-        for name, x in (("rows", ods), ("cols", ods.transpose(0, 1).contiguous()), ("q3", q2)):
-            got = rs_kernel.extend_pass(x, bit_mat)
-            want = rs_kernel.extend_pass_ref(x, bit_mat)
+        for pattern in K2_PATTERNS:
+            ods = square_of(pattern, k, rng, dev)
+            want = extend_plain(ods, operand)
+            got = {"rows": rs_kernel.extend_pass(ods, operand)}
+            cols = torch.zeros_like(want)
+            cols[:k, :k] = ods
+            rs_kernel.extend_lines(((cols[:k, :k].transpose(0, 1), cols[k:, :k].transpose(0, 1)),), operand)
+            got["cols_in_place"] = cols[k:, :k]
+            eds = torch.zeros_like(want)
+            eds[:k, :k] = ods
+            rs_kernel.extend_eds(eds, "rows_cols", operand)
+            got["q1"], got["q2"] = eds[:k, k:].clone(), eds[k:, :k].clone()
+            rs_kernel.extend_eds(eds, "q3", operand)
+            got["q3"] = eds[k:, k:]
+            got["square"] = rs.extend_square_fn(k, dev)(ods)
             torch.cuda.synchronize()
-            errs[name] = max_abs_err(got, want, 0xFF)
-            require(errs[name] == 0, f"K2 {name} pass differs from its plain version at k={k}")
-        got = rs.extend_square_fn(k, dev)(ods)
-        want = extend_plain(ods, bit_mat)
-        torch.cuda.synchronize()
-        errs["square"] = max_abs_err(got, want, 0xFF)
-        require(errs["square"] == 0, f"K2 extended square differs from the plain version at k={k}")
+            for name, g in got.items():
+                w = {"rows": want[:k, k:], "cols_in_place": want[k:, :k], "q1": want[:k, k:],
+                     "q2": want[k:, :k], "q3": want[k:, k:], "square": want}[name]
+                err = max_abs_err(g, w, 0xFF)
+                require(err == 0, f"K2 {name} differs from its plain version at k={k} on the {pattern} square")
+                errs[f"{pattern}/{name}"] = err
         worst = max(worst, *errs.values())
-        emit("k2_check", k=k, max_abs_err=errs)
+        emit("k2_check", k=k, max_abs_err=max(errs.values()), checks=len(errs))
     return worst
+
+
+def int_mm_ms(a: torch.Tensor, bits: torch.Tensor) -> float:
+    """Time of one torch._int_mm (int8 x int8 -> int32) of the same product
+    as a K2 pass: (8k x 8k) @ (8k x k*512), the bits of all k lines side by
+    side, in the column-major layout of the right operand that cuBLAS
+    takes for int8."""
+    x = bits.permute(1, 0, 2).reshape(bits.shape[1], -1).to(torch.int8)
+    x = x.t().contiguous().t()
+    a8 = a.to(torch.int8).contiguous()
+    got = torch._int_mm(a8, x)
+    want = torch.matmul(a.to(torch.float32), x.to(torch.float32))
+    require(torch.equal(got.to(torch.float32), want), "torch._int_mm differs from the float32 product")
+    return cuda_ms(lambda: torch._int_mm(a8, x), reps=20)
+
+
+def k2_sass_counts() -> dict:
+    """Tensor-core instructions in K2's library, by SASS mnemonic
+    (cuobjdump -sass): warpgroup products are ?GMMA (IGMMA for int8),
+    warp-level ones ?MMA."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(cuda_build.library_path("rs_extend"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts: dict[str, int] = {}
+    for op in re.findall(r"\b([A-Z]*MMA)\b", sass):
+        counts[op] = counts.get(op, 0) + 1
+    require(sum(n for op, n in counts.items() if op.endswith("GMMA")) > 0,
+            f"no warpgroup MMA instruction in K2's SASS: {counts}")
+    return counts
 
 
 def main_path(dev: torch.device) -> dict:
@@ -202,15 +257,15 @@ def main_path(dev: torch.device) -> dict:
          layout_s=build_s)
 
     sha256_kernel.compress_words.launches = 0
-    rs_kernel.extend_pass.launches = 0
+    rs_kernel.extend_lines.launches = 0
     d, ext, root = dah.new_dah_from_ods(ods)
     launches = {"sha256_compress": sha256_kernel.compress_words.launches,
-                "rs_extend_pass": rs_kernel.extend_pass.launches}
+                "rs_extend_lines": rs_kernel.extend_lines.launches}
     # 1 leaf launch + log2(2k) inner levels + 1 Merkle leaf launch +
-    # log2(4k) Merkle levels; 3 RS passes
+    # log2(4k) Merkle levels; 2 RS launches (rows and columns of Q0, rows of Q2)
     want_k1 = 2 + int(math.log2(2 * K_MAIN)) + int(math.log2(4 * K_MAIN))
     require(launches["sha256_compress"] == want_k1, f"K1 launches {launches} != {want_k1}")
-    require(launches["rs_extend_pass"] == 3, f"K2 launches {launches} != 3")
+    require(launches["rs_extend_lines"] == 2, f"K2 launches {launches} != 2")
     d.validate_basic()
     require(root == d.hash(), "device data root differs from the host hash of the DAH")
 
@@ -280,16 +335,20 @@ def timings(dev: torch.device, ods_np: np.ndarray, rng: np.random.Generator) -> 
     k1_plain_ms = cuda_ms(lambda: sha256_kernel.compress_words_ref(leaf_blocks), reps=3, warmup=1)
     k1_bound, k1_by = sha256_bound_ms(nblocks, n)
 
-    bit_mat = rs.bit_matrix_from_numpy(leopard.bit_matrix(k), dev)
-    k2_ms = cuda_ms(lambda: rs_kernel.extend_pass(ods, bit_mat), reps=50)
-    k2_plain_ms = cuda_ms(lambda: rs_kernel.extend_pass_ref(ods, bit_mat), reps=5, warmup=1)
+    operand = rs.bit_operand(k, dev)
+    k2_ms = cuda_ms(lambda: rs_kernel.extend_pass(ods, operand), reps=50)
+    k2_plain_ms = cuda_ms(lambda: rs_kernel.extend_pass_ref(ods, operand), reps=5, warmup=1)
     # Library yardstick: the GF(2) product alone as one torch.matmul of 0/1
     # fp16 operands (exact: sums <= 8k = 1024 fit fp16's 11-bit mantissa).
-    b16 = rs_kernel.unpack_bit_matrix(bit_mat, k).to(torch.float16)
-    bits16 = rs_kernel.bytes_to_bits(ods).to(torch.float16)
+    a = operand[: 8 * k, : 8 * k]
+    bits = rs_kernel.bytes_to_bits(ods)  # (k, 8k, 512)
+    b16, bits16 = a.to(torch.float16), bits.to(torch.float16)
     k2_lib_ms = cuda_ms(lambda: torch.matmul(b16, bits16), reps=20)
     k2_bound, k2_by = rs_pass_bound_ms(k)
     emit("kernel_time", k1_shape=[nblocks, 16, n], k2_shape=list(ods.shape))
+    extend = rs.extend_square_fn(k, dev)
+    emit("k2_detail", k=k, extend_two_launch_ms=cuda_ms(lambda: extend(ods), reps=50),
+         int_mm_ms=int_mm_ms(a, bits), sass=k2_sass_counts())
     return {
         "k1": (k1_ms, k1_plain_ms, k1_bound, k1_by, None),
         "k2": (k2_ms, k2_plain_ms, k2_bound, k2_by, k2_lib_ms),
@@ -325,8 +384,8 @@ def main() -> int:
     for key, name, source, replaces, counter, err in (
         ("k1", "sha256_compress", "celestia_app_tpu_torch/csrc/sha256.cu",
          "celestia_app_tpu/ops/sha256_pallas.py:45", "sha256_compress", k1_err),
-        ("k2", "rs_extend_pass", "celestia_app_tpu_torch/csrc/rs_extend.cu",
-         "celestia_app_tpu/ops/rs_pallas.py:33", "rs_extend_pass", k2_err),
+        ("k2", "rs_extend_lines", "celestia_app_tpu_torch/csrc/rs_extend.cu",
+         "celestia_app_tpu/ops/rs_pallas.py:33", "rs_extend_lines", k2_err),
     ):
         ms, plain_ms, bound_ms, bound_by, library_ms = t[key]
         rows.append({

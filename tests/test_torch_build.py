@@ -52,3 +52,26 @@ def test_failed_build_raises_and_leaves_no_library(build_dir, monkeypatch):
     with pytest.raises(RuntimeError, match=r"sha256\.cu \(nvcc exit 2\)"):
         cuda_build.build(("sha256",))
     assert not cuda_build.library_path("sha256").exists()
+
+
+def test_a_changed_header_rebuilds_the_kernels(build_dir, monkeypatch):
+    """The library key covers the headers in csrc/ beside the source, so
+    a kernel that includes a changed .cuh is rebuilt."""
+    csrc = build_dir / "csrc"
+    csrc.mkdir()
+    for src in cuda_build.CSRC_DIR.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    nvcc = _fake(build_dir, _FAKE_NVCC)
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: nvcc)
+    assert sorted(cuda_build.build()) == sorted(cuda_build.SOURCES)
+    before = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "the kernels include no header"
+    headers[0].write_text(headers[0].read_text() + "\n// changed\n")
+    after = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
+    assert all(before[name] != after[name] for name in cuda_build.SOURCES)
+    assert sorted(cuda_build.build()) == sorted(cuda_build.SOURCES)
+    assert all(after[name].exists() for name in cuda_build.SOURCES)
+    assert cuda_build.build() == {}

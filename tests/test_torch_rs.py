@@ -1,6 +1,6 @@
 """Port RS extension (ops/rs.py, kernel K2's plain version) against the JAX
-package: the bit matrix, each pass and the whole extended square, byte for
-byte."""
+package: the bit matrix and K2's operand, each pass and the whole extended
+square, byte for byte."""
 
 import jax
 import numpy as np
@@ -17,19 +17,19 @@ def _ods(k: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, 256, (k, k, 512), dtype=np.uint8)
 
 
-def _passes(ods: np.ndarray, bit_mat: torch.Tensor):
-    """Q1, Q2, Q3 through the plain pass, as extend_square_fn schedules them."""
+def _passes(ods: np.ndarray, operand: torch.Tensor):
+    """Q1, Q2, Q3 through the plain pass: rows of Q0, columns of Q0, rows of Q2."""
     x = torch.from_numpy(ods)
-    q1 = rs_kernel.extend_pass_ref(x, bit_mat)
-    q2 = rs_kernel.extend_pass_ref(x.transpose(0, 1).contiguous(), bit_mat).transpose(0, 1)
-    q3 = rs_kernel.extend_pass_ref(q2.contiguous(), bit_mat)
+    q1 = rs_kernel.extend_pass_ref(x, operand)
+    q2 = rs_kernel.extend_pass_ref(x.transpose(0, 1), operand).transpose(0, 1)
+    q3 = rs_kernel.extend_pass_ref(q2, operand)
     return q1.numpy(), q2.numpy(), q3.numpy()
 
 
 def _check_against(ref: np.ndarray, ods: np.ndarray):
     k = ods.shape[0]
-    bit_mat = rs.bit_matrix_from_numpy(leopard.bit_matrix(k), "cpu")
-    q1, q2, q3 = _passes(ods, bit_mat)
+    operand = rs.operand_from_bit_matrix(leopard.bit_matrix(k), "cpu")
+    q1, q2, q3 = _passes(ods, operand)
     np.testing.assert_array_equal(q1, ref[:k, k:])
     np.testing.assert_array_equal(q2, ref[k:, :k])
     np.testing.assert_array_equal(q3, ref[k:, k:])
@@ -63,22 +63,23 @@ def test_reference_bit_matrix_gives_the_same_square(k):
     """The constant carried across: the port fed the JAX package's matrix
     extends exactly as it does with its own."""
     ods = torch.from_numpy(_ods(k, 20 + k))
-    theirs = rs.bit_matrix_from_numpy(jax_leopard.bit_matrix(k), "cpu")
-    ours = rs.bit_matrix_from_numpy(leopard.bit_matrix(k), "cpu")
+    theirs = rs.operand_from_bit_matrix(jax_leopard.bit_matrix(k), "cpu")
+    ours = rs.operand_from_bit_matrix(leopard.bit_matrix(k), "cpu")
     assert torch.equal(theirs, ours)
-    a = rs.extend_square_fn(k, "cpu", bit_mat=theirs)(ods)
+    a = rs.extend_square_fn(k, "cpu", operand=theirs)(ods)
     b = rs.extend_square_fn(k, "cpu")(ods)
     assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("k", [1, 2, 4, 128])
-def test_packed_bit_matrix_round_trips(k):
+def test_operand_holds_the_bit_matrix_zero_padded(k):
     mat = leopard.bit_matrix(k)
-    packed = rs.bit_matrix_from_numpy(mat, "cpu")
-    assert packed.dtype == torch.int32
-    assert packed.shape == (8 * k, rs_kernel.words_per_vector(k))
-    back = rs_kernel.unpack_bit_matrix(packed, k)
-    np.testing.assert_array_equal(back.numpy().astype(np.int8), mat)
+    operand = rs.operand_from_bit_matrix(mat, "cpu")
+    side = rs_kernel.padded(k)
+    assert operand.dtype == torch.uint8 and operand.shape == (side, side)
+    assert side % rs_kernel.TILE == 0 and side >= 8 * k
+    np.testing.assert_array_equal(operand[: 8 * k, : 8 * k].numpy().astype(np.int8), mat)
+    assert not operand[8 * k:].any() and not operand[:, 8 * k:].any()
 
 
 def test_bits_round_trip():
@@ -93,34 +94,37 @@ def test_gf16_square_sizes_raise():
         rs.extend_square_fn(256, "cpu")
 
 
+_OP4 = torch.zeros((128, 128), dtype=torch.uint8)  # the operand's shape at k = 4
+
+
 @pytest.mark.parametrize(
-    "x,bit_mat",
+    "x,operand",
     [
-        (torch.zeros((4, 4, 256), dtype=torch.uint8), torch.zeros((32, 4), dtype=torch.int32)),
-        (torch.zeros((3, 3, 512), dtype=torch.uint8), torch.zeros((24, 4), dtype=torch.int32)),
-        (torch.zeros((4, 4, 512), dtype=torch.int32), torch.zeros((32, 4), dtype=torch.int32)),
-        (torch.zeros((4, 4, 512), dtype=torch.uint8), torch.zeros((32, 1), dtype=torch.int32)),
-        (torch.zeros((4, 4, 512), dtype=torch.uint8), torch.zeros((32, 4), dtype=torch.int64)),
-        (torch.zeros((4, 4, 512), dtype=torch.uint8).transpose(0, 1), torch.zeros((32, 4), dtype=torch.int32)),
-        (torch.zeros((4, 4, 512), dtype=torch.uint8), torch.zeros((32, 4), dtype=torch.int32, device="meta")),
-        (torch.zeros((4, 4, 512), dtype=torch.uint8, device="meta"), torch.zeros((32, 4), dtype=torch.int32, device="meta")),
+        (torch.zeros((4, 4, 256), dtype=torch.uint8), _OP4),
+        (torch.zeros((3, 3, 512), dtype=torch.uint8), torch.zeros((128, 128), dtype=torch.uint8)),
+        (torch.zeros((4, 4, 512), dtype=torch.int32), _OP4),
+        (torch.zeros((4, 4, 512), dtype=torch.uint8), torch.zeros((32, 32), dtype=torch.uint8)),
+        (torch.zeros((4, 4, 512), dtype=torch.uint8), torch.zeros((128, 128), dtype=torch.int8)),
+        (torch.zeros((4, 4, 512), dtype=torch.uint8).transpose(0, 1), _OP4),
+        (torch.zeros((4, 4, 512), dtype=torch.uint8), torch.zeros((128, 128), dtype=torch.uint8, device="meta")),
+        (torch.zeros((4, 4, 512), dtype=torch.uint8, device="meta"), torch.zeros((128, 128), dtype=torch.uint8, device="meta")),
     ],
 )
-def test_extend_pass_rejects_what_the_kernel_does_not_take(x, bit_mat):
+def test_extend_pass_rejects_what_the_kernel_does_not_take(x, operand):
     with pytest.raises(ValueError):
-        rs_kernel.extend_pass(x, bit_mat)
+        rs_kernel.extend_pass(x, operand)
 
 
 def test_extend_pass_on_cpu_takes_plain_version_without_launching():
     k = 4
     x = torch.from_numpy(_ods(k, 5))
-    bit_mat = rs.bit_matrix_from_numpy(leopard.bit_matrix(k), "cpu")
-    before = rs_kernel.extend_pass.launches
-    assert torch.equal(rs_kernel.extend_pass(x, bit_mat), rs_kernel.extend_pass_ref(x, bit_mat))
-    assert rs_kernel.extend_pass.launches == before
+    operand = rs.bit_operand(k, "cpu")
+    before = rs_kernel.extend_lines.launches
+    assert torch.equal(rs_kernel.extend_pass(x, operand), rs_kernel.extend_pass_ref(x, operand))
+    assert rs_kernel.extend_lines.launches == before
 
 
 @pytest.mark.parametrize("mat", [np.zeros((8, 16), np.int8), np.full((8, 8), 2, np.int8)])
-def test_bit_matrix_from_numpy_rejects_bad_matrices(mat):
+def test_operand_from_bit_matrix_rejects_bad_matrices(mat):
     with pytest.raises(ValueError):
-        rs.bit_matrix_from_numpy(mat, "cpu")
+        rs.operand_from_bit_matrix(mat, "cpu")

@@ -2,14 +2,15 @@
 
 Port of celestia_app_tpu/da/eds.py:pipeline_fn. For one (k, k, 512) square:
 
-  1. 2D Reed-Solomon extension to 2k x 2k (ops/rs.py, three K2 launches);
+  1. 2D Reed-Solomon extension to 2k x 2k (ops/rs.py, two K2 launches);
   2. all 2k row and 2k column NMT roots (ops/nmt.py), Q0 leaves namespaced
      by their own share prefix and parity leaves by PARITY_SHARE_NAMESPACE
      (pkg/wrapper/nmt_wrapper.go:93-114 semantics);
   3. the RFC-6962 Merkle root over rowRoots || colRoots, the data root
      (pkg/da/data_availability_header.go:100-107).
 
-Everything stays on the device between stages.
+Everything stays on the device between stages. `roots_only` is the same
+pass for a caller that needs the commitments and not the square.
 """
 
 from __future__ import annotations
@@ -60,3 +61,13 @@ def pipeline(
     row_roots, col_roots = axis_roots[: 2 * k], axis_roots[2 * k:]
     data_root = merkle.merkle_root_pow2(axis_roots)
     return eds, row_roots, col_roots, data_root
+
+
+def roots_only(
+    ods: np.ndarray | torch.Tensor, device=None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(k, k, 512) u8 ODS -> (row_roots, col_roots, data_root) on `device`,
+    without the extended square: the EDS is dropped on the device and never
+    copied back."""
+    _, row_roots, col_roots, data_root = pipeline(ods, device)
+    return row_roots, col_roots, data_root

@@ -24,19 +24,31 @@ final line is never printed):
    square.build (k = 128), shares_to_ods and new_dah_from_ods on cuda, with
    both launch counters read around it (19 K1 and 2 K2 launches); the data
    root against the port's own CPU path, and the reference golden hashes;
-5. times with CUDA events after warm-up: the block, each kernel at the main
+5. the proof and read plane on the same block, on cuda: the block cache
+   (EdsCache.get_or_compute, then a hit with no launch), the row and
+   column provers (9 K1 launches each, row levels equal to the CPU path),
+   batched blob commitments (K1 launches as the MMR plan says, equal to
+   hashlib and to the commitments read off the row trees), share proofs of
+   every blob and tx proofs of every tx and PFB verified against the data
+   root (a seeded sample equal to the host proofs), cells at each
+   quadrant's corners through the column prover, and batched namespace
+   reads of every present and some absent namespaces against the host
+   scan, each verified against the DAH; one `proof_plane` line;
+6. times with CUDA events after warm-up: the block, each kernel at the main
    path's shapes, each plain version, K2's library yardsticks (fp16
    torch.matmul and torch._int_mm of the same product) and the two-launch
    extension; the tensor-core instructions in K2's SASS (cuobjdump); and a
    torch.profiler trace of the block for its device busy time by kernel.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits with
-code 2 before any of this.
+The line before the last is {"kernels": [...]}, with each kernel's launches
+summed over the paths driven in phases 4 and 5 and split by path; the last
+line is {"ok": true, "device": {...}}. Without a CUDA device the script
+exits with code 2 before any of this.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import math
@@ -50,7 +62,20 @@ import numpy as np
 import torch
 
 from celestia_app_tpu_torch import appconsts, cuda_build
-from celestia_app_tpu_torch.da import blob, dah, eds, namespace, square
+from celestia_app_tpu_torch.da import (
+    blob,
+    commitment,
+    commitment_device,
+    dah,
+    edscache,
+    eds,
+    namespace,
+    namespace_data,
+    namespace_device,
+    proof,
+    proof_device,
+    square,
+)
 from celestia_app_tpu_torch.ops import leopard, rs, rs_kernel, sha256, sha256_kernel
 
 SEED = 0
@@ -59,6 +84,8 @@ K1_CHECK_LENGTHS = (542, 181, 91, 65)  # NMT leaf, NMT inner, Merkle leaf, Merkl
 K1_CHECK_COUNTS = (65536, 1000)  # the leaf level at k = 128, and a ragged N
 K2_CHECK_KS = (1, 2, 4, 8, 16, 32, 64, 128)
 K2_PATTERNS = ("random", "ones", "zeros")  # all-0xFF puts every s32 sum at its largest
+HOST_PROOF_SAMPLE = 16  # share ranges checked against the hashlib proofs
+ABSENT_NAMESPACES = 8
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet, dense
 # rates). The card has no SHA or GF(2) unit:
@@ -242,6 +269,16 @@ def k2_sass_counts() -> dict:
     return counts
 
 
+def reset_counts() -> None:
+    sha256_kernel.compress_words.launches = 0
+    rs_kernel.extend_lines.launches = 0
+
+
+def read_counts() -> dict:
+    return {"sha256_compress": sha256_kernel.compress_words.launches,
+            "rs_extend_lines": rs_kernel.extend_lines.launches}
+
+
 def main_path(dev: torch.device) -> dict:
     upper = appconsts.SQUARE_SIZE_UPPER_BOUND
     t0 = time.perf_counter()
@@ -256,11 +293,9 @@ def main_path(dev: torch.device) -> dict:
          blob_bytes=sum(len(b.data) for e in sq.pfbs for b in e.blobs),
          layout_s=build_s)
 
-    sha256_kernel.compress_words.launches = 0
-    rs_kernel.extend_lines.launches = 0
+    reset_counts()
     d, ext, root = dah.new_dah_from_ods(ods)
-    launches = {"sha256_compress": sha256_kernel.compress_words.launches,
-                "rs_extend_lines": rs_kernel.extend_lines.launches}
+    launches = read_counts()
     # 1 leaf launch + log2(2k) inner levels + 1 Merkle leaf launch +
     # log2(4k) Merkle levels; 2 RS launches (rows and columns of Q0, rows of Q2)
     want_k1 = 2 + int(math.log2(2 * K_MAIN)) + int(math.log2(4 * K_MAIN))
@@ -284,32 +319,171 @@ def main_path(dev: torch.device) -> dict:
     require(dah.min_data_root() == MIN_DAH_HASH, "min data root differs from the golden hash")
     emit("main_path", data_root=root.hex(), launches=launches, cpu_path_s=cpu_s,
          golden_128=golden.hex(), golden_min=MIN_DAH_HASH.hex())
-    return {"ods": ods, "launches": launches}
+    return {"ods": ods, "square": sq, "data_root": root, "launches": launches}
 
 
-def profile_block(dev: torch.device, ods: torch.Tensor, block_ms: float, reps: int = 3) -> None:
-    """Device time of eds.pipeline by kernel, from a torch.profiler trace
-    of `reps` blocks; the busy share is held against `block_ms`, the
-    unprofiled time of one block."""
+def timed(fn):
+    """(fn(), host seconds), the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def proof_plane(dev: torch.device, main: dict, rng: np.random.Generator) -> dict:
+    """The block cache, provers, commitments, proofs and namespace reads on
+    the main path's block. Returns the launch counts of each counted run."""
+    ods, sq, data_root = main["ods"], main["square"], main["data_root"]
+    k = sq.size
+    log2_2k = int(math.log2(2 * k))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counted = {}
+
+    # 1. the block cache: one encode, then a hit with no launch
+    cache = edscache.EdsCache()
+    reset_counts()
+    entry, cache_miss_s = timed(lambda: cache.get_or_compute(ods))
+    counted["cache_miss"] = read_counts()
+    require(counted["cache_miss"] == main["launches"],
+            f"cache miss launches {counted['cache_miss']} != the main path's {main['launches']}")
+    require(entry.data_root == data_root, "cached data root differs from the main path's")
+    reset_counts()
+    again = cache.get_or_compute(ods)
+    hit_counts = read_counts()
+    require(again is entry and cache.hits == 1 and cache.misses == 1, "second get_or_compute was no hit")
+    require(hit_counts == {"sha256_compress": 0, "rs_extend_lines": 0}, f"cache hit launched {hit_counts}")
+    require(cache.lookup_root(data_root) is entry, "lookup_root did not find the entry")
+
+    # 2. the row and column provers: 1 + log2(2k) K1 launches each
+    reset_counts()
+    prover, row_prover_s = timed(entry.get_prover)
+    counted["row_prover"] = read_counts()
+    reset_counts()
+    col_prover, col_prover_s = timed(entry.get_col_prover)
+    counted["col_prover"] = read_counts()
+    for name in ("row_prover", "col_prover"):
+        require(counted[name] == {"sha256_compress": 1 + log2_2k, "rs_extend_lines": 0},
+                f"{name} launches {counted[name]} != {1 + log2_2k} K1")
+    cpu_levels = proof_device.levels_to_host(proof_device.row_levels(entry.eds.squares, device="cpu"))
+    require(all(np.array_equal(g, w) for lv, wlv in zip(prover.levels, cpu_levels) for g, w in zip(lv, wlv)),
+            "row levels differ from the port's CPU path")
+    top = col_prover.levels[-1]
+    require(tuple(top[0][c, 0].tobytes() + top[1][c, 0].tobytes() + top[2][c, 0].tobytes()
+                  for c in range(2 * k)) == entry.dah.col_roots,
+            "column prover's tree roots differ from the column roots")
+    eds_dev = torch.from_numpy(entry.eds.squares).to(dev)
+    level_pass_ms = cuda_ms(lambda: proof_device.row_levels(eds_dev, dev), reps=10)
+    device_profile("level_pass_profile", lambda: proof_device.row_levels(eds_dev, dev), level_pass_ms)
+    levels_dev = proof_device.row_levels(eds_dev, dev)
+    download_ms = cuda_ms(lambda: proof_device.levels_to_host(levels_dev), reps=5)
+    levels_mb = sum(a.nbytes for lv in prover.levels for a in lv) / 1e6
+
+    # 3. batched blob commitments: 1 + log2(s) K1 launches per distinct subtree size s
+    blobs = [b for e in sq.pfbs for b in e.blobs]
+    threshold = appconsts.SUBTREE_ROOT_THRESHOLD
+    _, groups = commitment_device.plan(blobs, threshold)
+    want_k1 = sum(1 + int(math.log2(s)) for s in groups)
+    reset_counts()
+    got = commitment_device.commitments_device(blobs, threshold)
+    counted["commitments"] = read_counts()
+    require(counted["commitments"] == {"sha256_compress": want_k1, "rs_extend_lines": 0},
+            f"commitment launches {counted['commitments']} != {want_k1} K1 from the plan")
+    host, hashlib_s = timed(lambda: commitment.create_commitments(blobs, threshold))
+    from_eds = [prover.commitment_from_eds(sq, i, j, threshold)
+                for i, e in enumerate(sq.pfbs) for j in range(len(e.blobs))]
+    require(got == host == from_eds, "commitments differ between the card, hashlib and the row trees")
+    device_s = min(timed(lambda: commitment_device.commitments_device(blobs, threshold))[1] for _ in range(3))
+
+    # 4. share proofs of every blob, tx proofs of every tx and PFB
+    ranges = [(proof.blob_share_range(sq, i, j), b.namespace.raw)
+              for i, e in enumerate(sq.pfbs) for j, b in enumerate(e.blobs)]
+    n_tx = len(sq.txs) + len(sq.pfbs)
+    t0 = time.perf_counter()
+    blob_proofs = [prover.prove_shares(lo, hi, ns) for (lo, hi), ns in ranges]
+    blob_prove_s = time.perf_counter() - t0
+    tx_proofs = [prover.prove_tx(sq, i) for i in range(n_tx)]
+    prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    require(all(p.verify(data_root) and p.all_shares_in_namespace() for p in blob_proofs),
+            "a blob share proof does not verify")
+    require(all(p.verify(data_root) for p in tx_proofs), "a tx proof does not verify")
+    verify_s = time.perf_counter() - t0
+    sample = [ranges[int(i)][0] for i in rng.choice(len(ranges), HOST_PROOF_SAMPLE // 2, replace=False)]
+    for _ in range(HOST_PROOF_SAMPLE - len(sample)):
+        lo = int(rng.integers(0, k * k))
+        sample.append((lo, int(rng.integers(lo + 1, min(k * k, lo + 3 * k) + 1))))
+    for lo, hi in sample:
+        ns = ods[lo // k, lo % k, :29].tobytes()
+        require(dataclasses.astuple(prover.prove_shares(lo, hi, ns))
+                == dataclasses.astuple(proof.new_share_inclusion_proof(entry.eds, entry.dah, lo, hi, ns)),
+                f"share proof of [{lo}, {hi}) differs from the host proof")
+    corners = [(r, c) for r in (0, k - 1, k, 2 * k - 1) for c in (0, k - 1, k, 2 * k - 1)]
+    for r, c in corners:
+        share, pf = col_prover.prove_cell(c, r)
+        ns = share[:29] if r < k and c < k else namespace.PARITY_NS_RAW
+        require(share == entry.eds.squares[r, c].tobytes() and pf.verify(entry.dah.col_roots[c], [(ns, share)]),
+                f"column proof of cell ({r}, {c}) does not verify")
+
+    # 5. batched namespace reads against the host scan
+    present = sorted({b.namespace.raw for b in blobs})
+    absent = []
+    while len(absent) < ABSENT_NAMESPACES:
+        ns = namespace.Namespace.v0(rng.bytes(10)).raw
+        if ns not in present and ns not in absent:
+            absent.append(ns)
+    queries = present + absent
+    reads = namespace_device.get_namespace_data_batched(prover, queries)
+    scan, scan_s = timed(lambda: [namespace_data.get_namespace_data(prover, q) for q in queries])
+    for q, nd, want in zip(queries, reads, scan):
+        require(dataclasses.astuple(nd) == dataclasses.astuple(want), f"namespace read {q.hex()} differs from the host scan")
+        require(namespace_data.verify_namespace_data(entry.dah, q, nd), f"namespace read {q.hex()} does not verify")
+    require([bool(nd.shares) for nd in reads] == [True] * len(present) + [False] * len(absent),
+            "namespace presence differs from the block's blobs")
+    batched_s = min(timed(lambda: namespace_device.get_namespace_data_batched(prover, queries))[1]
+                    for _ in range(3))
+
+    emit("proof_plane", k=k, launches=counted, cache_hit_launches=hit_counts,
+         cache_miss_s=cache_miss_s, row_prover_s=row_prover_s, col_prover_s=col_prover_s,
+         level_pass_ms=level_pass_ms, levels_download_ms=download_ms, levels_mb=levels_mb,
+         commitments=len(blobs), subtree_sizes=sorted(groups), commitments_device_ms=device_s * 1e3,
+         commitments_hashlib_ms=hashlib_s * 1e3,
+         proofs=len(blob_proofs) + len(tx_proofs), proofs_per_s=(len(blob_proofs) + len(tx_proofs)) / prove_s,
+         blob_proofs_per_s=len(blob_proofs) / blob_prove_s,
+         tx_proofs_per_s=len(tx_proofs) / (prove_s - blob_prove_s),
+         verify_per_s=(len(blob_proofs) + len(tx_proofs)) / verify_s, host_proofs_checked=len(sample),
+         cells_checked=len(corners), namespaces_present=len(present), namespaces_absent=len(absent),
+         namespace_batched_ms=batched_s * 1e3, namespace_host_scan_ms=scan_s * 1e3,
+         peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    return counted
+
+
+def device_profile(phase: str, fn, wall_ms: float, reps: int = 3) -> None:
+    """Device time of fn() by kernel, from a torch.profiler trace of `reps`
+    calls after one warm-up; the busy share is held against `wall_ms`, the
+    unprofiled time of one call. Host-to-device copies are counted apart:
+    a copy from pageable host memory holds the host until it is done."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eds.pipeline(ods, dev)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            eds.pipeline(ods, dev)
+            fn()
         torch.cuda.synchronize()
     by_name: dict[str, float] = {}
-    launches = 0
+    ops = h2d = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-            launches += 1
+            ops += 1
+            h2d += "HtoD" in e.name
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit("block_profile", device_busy_ms=busy_ms, device_ops_per_block=launches / reps,
-         idle_share=1 - busy_ms / block_ms, top_ms=[[name[:72], ms] for name, ms in top])
+    emit(phase, device_busy_ms=busy_ms, device_ops_per_call=ops / reps, h2d_copies_per_call=h2d / reps,
+         idle_share=1 - busy_ms / wall_ms, top_ms=[[name[:72], ms] for name, ms in top])
 
 
 def timings(dev: torch.device, ods_np: np.ndarray, rng: np.random.Generator) -> dict:
@@ -326,7 +500,7 @@ def timings(dev: torch.device, ods_np: np.ndarray, rng: np.random.Generator) -> 
     dah.new_dah_from_ods(ods_np)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     emit("block_time", k=k, pipeline_ms=block_ms, new_dah_from_ods_ms=dah_ms, peak_mib=peak_mib)
-    profile_block(dev, ods, block_ms)
+    device_profile("block_profile", lambda: eds.pipeline(ods, dev), block_ms)
 
     leaves = torch.from_numpy(rng.integers(0, 256, ((2 * k) ** 2, 542), dtype=np.uint8)).to(dev)
     leaf_blocks = sha256.pack_blocks(leaves)  # (9, 16, 65536) at k = 128
@@ -378,6 +552,7 @@ def main() -> int:
     k1_err = check_sha256(dev, rng)
     k2_err = check_rs(dev, rng)
     main = main_path(dev)
+    by_path = {"main_path": main["launches"], **proof_plane(dev, main, rng)}
     t = timings(dev, main["ods"], rng)
 
     rows = []
@@ -390,7 +565,9 @@ def main() -> int:
         ms, plain_ms, bound_ms, bound_by, library_ms = t[key]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": main["launches"][counter], "max_abs_err": err,
+            "launches": sum(counts[counter] for counts in by_path.values()),
+            "launches_by_path": {path: counts[counter] for path, counts in by_path.items()},
+            "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
         })

@@ -7,12 +7,10 @@ of celestia_app_tpu/da/codec.py.
   proofs; and the scheme's own confidence arithmetic (the per-sample catch
   probability differs per construction).
 - The registry binds names to wire ids (FORMATS §16.1): id 0 is the 2D-RS
-  + NMT default (da/codec_rs2d.py), 1 the Coded Merkle Tree, 2 the
-  polar-coded variant.
-
-The port registers rs2d-nmt only: the CMT and PCMT schemes (reference
-da/cmt.py, da/pcmt.py) are not ported yet, and asking for them raises
-CodecError naming what the port carries.
+  + NMT default (da/codec_rs2d.py), id 1 the Coded Merkle Tree
+  (da/cmt.py, LDGM-coded layers) and id 2 the Polar Coded Merkle Tree
+  (da/pcmt.py, polar-coded layers). All three encode on the card through
+  kernel K1 (and K2 for the default); a header's ``da_scheme`` picks one.
 """
 
 from __future__ import annotations
@@ -37,8 +35,9 @@ class CodecError(ValueError):
 class BadEncodingDetected(Exception):
     """Base of every scheme's incorrect-coding detection: repair() found
     that the commitments provably commit an invalid codeword. ``location``
-    is the scheme's fraud coordinate (("row", 1) for rs2d-nmt), what
-    ``build_fraud_proof`` consumes."""
+    is the scheme's fraud coordinate (("row", 1) for rs2d-nmt, (layer,
+    equation) for cmt-ldpc and pcmt-polar), what ``build_fraud_proof`` and
+    ``fraud_cells`` consume."""
 
     def __init__(self, location: tuple, msg: str):
         super().__init__(msg)
@@ -51,7 +50,7 @@ class Codec:
 
     An entry (from ``compute_entry``) has ``.data_root`` (32 bytes),
     ``.dah`` (the commitments, with ``.hash() == data_root``), ``.k`` (ODS
-    width) and ``.get_prover(device)``."""
+    width) and ``.warm(device)``."""
 
     scheme_id: int
     name: str
@@ -67,6 +66,12 @@ class Codec:
         """(k, k, 512) u8 ODS -> scheme entry (commitments, payload, data
         root), computed on `device` (the card unless the caller asks for
         the CPU)."""
+        raise NotImplementedError
+
+    def _encode_impl(self, ods, device=None):
+        """Raw encode hook that `da/edscache.compute_entry` resolves through
+        the registry for the non-default schemes; callers use
+        ``compute_entry``."""
         raise NotImplementedError
 
     def min_entry(self, device=None):
@@ -140,6 +145,17 @@ class Codec:
         """The scheme's fraud-proof class."""
         raise NotImplementedError
 
+    def fraud_cells(self, commitments, location) -> list[tuple]:
+        """The sample cells a light node must hold, served and verified, to
+        assemble the fraud proof for ``location`` (schemes whose proofs are
+        not assembled from served cells need not implement it)."""
+        raise NotImplementedError
+
+    def fraud_proof_from_members(self, commitments, location, members: list[tuple]):
+        """The proof assembled from served members: one (cell, payload,
+        sample doc) triple per ``fraud_cells`` cell, in order."""
+        raise NotImplementedError
+
     # -- confidence arithmetic (per scheme; light-client math) -----------
 
     def catch_probability(self) -> float:
@@ -177,10 +193,14 @@ def register(codec: Codec) -> Codec:
 
 
 def _ensure_builtin() -> None:
-    # lazy: the scheme module imports da/edscache and ops/, which need not
+    # lazy: the scheme modules import da/edscache and ops/, which need not
     # load with this module
     if RS2D_NAME not in _REGISTRY:
         from celestia_app_tpu_torch.da import codec_rs2d  # noqa: F401
+    if CMT_NAME not in _REGISTRY:
+        from celestia_app_tpu_torch.da import cmt  # noqa: F401
+    if PCMT_NAME not in _REGISTRY:
+        from celestia_app_tpu_torch.da import pcmt  # noqa: F401
 
 
 def _registered_desc() -> str:

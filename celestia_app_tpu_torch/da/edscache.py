@@ -11,15 +11,17 @@ light clients sample it; the cache makes that one encode per square.
   header cannot poison the cache.
 - **One encode.** `compute_entry` is one `da/eds.pipeline` pass on the
   device (kernels K1 and K2) with the square, the DAH and the data root
-  brought back to the host.
+  brought back to the host. The other codec schemes (cmt-ldpc,
+  pcmt-polar) dispatch through the registry's encode hook and cache their
+  own entry types under keys prefixed with the scheme's name.
 - **Lazy provers.** Each entry builds its row prover and its column prover
   (a row prover over the transposed square) at most once, on demand, each
   under its own lock, so concurrent samplers of a fresh entry pay one level
   pass between them and a row-proof reader never waits on a column build.
 
-Not ported: the device-resident mesh entry, the background prover warmer,
-the codec-scheme dispatch and the residency gauge. Hit, miss and eviction
-counts are plain attributes of the cache.
+Not ported: the device-resident mesh entry, the background prover warmer
+and the residency gauge. Hit, miss and eviction counts are plain attributes
+of the cache.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import threading
 
 import numpy as np
 
+from celestia_app_tpu_torch.da import codec as codec_mod
 from celestia_app_tpu_torch.da import eds as eds_mod
 from celestia_app_tpu_torch.da import proof_device
 from celestia_app_tpu_torch.da.dah import DataAvailabilityHeader, ExtendedDataSquare
@@ -41,18 +44,28 @@ DEFAULT_MAX_ENTRIES = 4
 DEFAULT_MAX_BYTES = 1 << 30
 
 
-def entry_nbytes(entry: "EdsCacheEntry") -> int:
-    """Conservative byte charge of one entry: the (2k)^2 x 512 B EDS,
-    doubled for the row and column level arrays a warmed entry holds."""
+def entry_nbytes(entry) -> int:
+    """Conservative byte charge of one entry: its own ``nbytes()`` where its
+    type has one, else the (2k)^2 x 512 B EDS, doubled for the row and
+    column level arrays a warmed entry holds."""
+    own = getattr(entry, "nbytes", None)
+    if callable(own):
+        return int(own())
     two_k = 2 * entry.k
     return two_k * two_k * 512 * 2
 
 
-def cache_key(ods: np.ndarray) -> bytes:
+def cache_key(ods: np.ndarray, scheme: str = codec_mod.RS2D_NAME) -> bytes:
     """Content address of an original data square: sha256 over its share
     bytes in row-major order. Shares are 512 B and there are k^2 of them, so
-    the bytes fix the geometry: two squares collide iff they are equal."""
-    return hashlib.sha256(np.ascontiguousarray(ods).data).digest()
+    the bytes fix the geometry: two squares collide iff they are equal. The
+    other schemes prefix their name and a zero byte, so one square under
+    two schemes takes two entries and the default's keys stay as they were."""
+    h = hashlib.sha256()
+    if scheme != codec_mod.RS2D_NAME:
+        h.update(scheme.encode() + b"\x00")
+    h.update(np.ascontiguousarray(ods).data)
+    return h.digest()
 
 
 def build_block_prover(eds: ExtendedDataSquare, dah: DataAvailabilityHeader,
@@ -65,6 +78,8 @@ def build_block_prover(eds: ExtendedDataSquare, dah: DataAvailabilityHeader,
 class EdsCacheEntry:
     """One cached extension, ``(eds, dah, data_root)``, and its lazily built
     provers. The extension fields do not change after construction."""
+
+    scheme = codec_mod.RS2D_NAME
 
     def __init__(self, eds: ExtendedDataSquare, dah: DataAvailabilityHeader,
                  data_root: bytes):
@@ -119,9 +134,13 @@ class EdsCacheEntry:
             return row_ready and self._col_prover is not None
 
 
-def compute_entry(ods: np.ndarray, device=None) -> EdsCacheEntry:
-    """ODS -> cache entry: one `eds.pipeline` pass on `device` (the card
-    unless the caller asks for the CPU), its outputs brought to the host."""
+def compute_entry(ods: np.ndarray, device=None, scheme: str = codec_mod.RS2D_NAME):
+    """ODS -> the scheme's entry, computed on `device` (the card unless the
+    caller asks for the CPU). The default scheme is one `eds.pipeline` pass,
+    its outputs brought to the host; the others go through the registry's
+    encode hook (CodecError for a scheme the registry does not carry)."""
+    if scheme != codec_mod.RS2D_NAME:
+        return codec_mod.get(scheme)._encode_impl(ods, device)
     eds, rows, cols, root = eds_mod.pipeline(ods, device)
     dah = DataAvailabilityHeader(
         row_roots=tuple(bytes(r) for r in rows.cpu().numpy()),
@@ -194,13 +213,14 @@ class EdsCache:
             self._entries.move_to_end(key)
             return self._entries[key]
 
-    def get_or_compute(self, ods: np.ndarray, device=None) -> EdsCacheEntry:
-        """One encode per square content, ever (while it stays resident)."""
-        key = cache_key(ods)
+    def get_or_compute(self, ods: np.ndarray, device=None, scheme: str = codec_mod.RS2D_NAME):
+        """One encode per (scheme, square content), ever (while it stays
+        resident)."""
+        key = cache_key(ods, scheme)
         entry = self.get(key)
         if entry is not None:
             return entry
-        return self.put(key, compute_entry(ods, device))
+        return self.put(key, compute_entry(ods, device, scheme))
 
     def clear(self) -> None:
         with self._lock:

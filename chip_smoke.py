@@ -73,20 +73,36 @@ final line is never printed):
    table's build and upload, _prep and _py_verify per lane, a
    torch.profiler trace of one dispatch and the peak memory; one
    `admission_plane` line;
-8. times with CUDA events after warm-up: the block, each kernel at the main
+8. the two other codecs on the same ODS, on cuda, for cmt-ldpc and
+   pcmt-polar each: compute_entry cold (every code table derived and
+   uploaded) and warm, with the K1 launches of the layer plan (4 for CMT,
+   29 for PCMT at k = 128), the data root and every layer equal to the
+   host yardstick (numpy encode_host and hashlib), times, copies and peak
+   memory; the frozen k = 4 and 8 roots and the empty-block roots;
+   ldpc.encode / polar.encode against encode_host and the peel of a
+   seeded quarter-erased base layer, clean and with a flipped symbol,
+   against peel_host (bytes, known, sweeps); repair from 3/4 of the base
+   cells; 64 sample round trips and a tampered proof; a mis-coded entry
+   from testing/malicious whose fraud proof is accepted against its
+   commitments and refused against the honest ones, and whose repair
+   attributes it; the block cache (a hit makes no launch); and
+   rs_tunable's axis encode (64 shares to 128) against its host version;
+   one `codec_plane` line;
+9. times with CUDA events after warm-up: the block, each kernel at the main
    path's shapes, each plain version, K2's library yardsticks (fp16
    torch.matmul and torch._int_mm of the same product) and the two-launch
    extension; the tensor-core instructions in K2's SASS (cuobjdump); and a
    torch.profiler trace of the block for its device busy time by kernel.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
-summed over the paths driven in phases 4 to 7 and split by path; the last
+summed over the paths driven in phases 4 to 8 and split by path; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits with code 2 before any of this.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import hashlib
 import json
@@ -105,6 +121,7 @@ from celestia_app_tpu_torch.chain import admission, crypto
 from celestia_app_tpu_torch.chain import tx as tx_mod
 from celestia_app_tpu_torch.da import (
     blob,
+    cmt,
     codec,
     commitment,
     commitment_device,
@@ -115,6 +132,7 @@ from celestia_app_tpu_torch.da import (
     namespace,
     namespace_data,
     namespace_device,
+    pcmt,
     proof,
     proof_device,
     repair,
@@ -122,16 +140,20 @@ from celestia_app_tpu_torch.da import (
     square,
 )
 from celestia_app_tpu_torch.ops import (
+    ldpc,
     leopard,
     leopard_decode,
     nmt,
+    polar,
     rs,
     rs_kernel,
+    rs_tunable,
     secp256k1,
     sha256,
     sha256_kernel,
 )
-from celestia_app_tpu_torch.utils import nmt_host
+from celestia_app_tpu_torch.testing import malicious
+from celestia_app_tpu_torch.utils import fast_host, nmt_host
 from celestia_app_tpu_torch.wire import codec as wire_codec
 from celestia_app_tpu_torch.wire import txpb
 
@@ -150,6 +172,7 @@ ADMISSION_ACCOUNTS = 64
 SENDS_PER_ACCOUNT = 16
 ADVERSARIAL_PER_CLASS = 3
 HONEST_PY_SAMPLE = 64
+RS_TUNABLE_KN = (64, 128)  # an axis of 64 shares stretched to 128 (the matrices are host Lagrange, O(k^3))
 ADMISSION_SWEEP_LANES = (256, 1024, 4096, 8192)  # lanes per dispatch, for the cap
 # int64 multiply-adds per verified lane, counted off ops/secp256k1: a
 # fe_mul is 100 convolution products + 21 fold products + 4 in its two
@@ -177,6 +200,14 @@ SHA_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
 
 MIN_DAH_HASH = bytes.fromhex("3d96b7d238e7e0456f6af8e7cdf0a67bd6cf9c2089ecb559c659dcaa1f880353")
 MAX_128X128_HASH = bytes.fromhex("0bd3abeeacfbb0b92dfbdac4a154868e3c4e79666f7fcf6c620bb90dd3a0dcf0")
+# the codec roots tests/test_codec_iface.py pins: k = 4 and 8 squares of
+# np.random.RandomState(7) bytes, and the empty block
+FROZEN_CMT_ROOT = {4: "ecb93696cccd83f43aa92b324296a17fce6c5b3b24c136f50b1e3ed57e3b36da",
+                   8: "e8bb3e85b5bfae79438fd436acd1afa22d002a679395c861bb9fba59dfb893ea"}
+FROZEN_PCMT_ROOT = {4: "30cd7537522eb44d4daf235a253a29f8336f694626039a4e85b505605fb15986",
+                    8: "fe7c3a6cd47a6cb58244971c39e663f46456c8e8e5fb0b47e00c9f1a5a9154cd"}
+FROZEN_MIN_ROOT = {"cmt-ldpc": "b14c97a1825a294c0cd9727539c36e8a7b14976b2dd29e7895b79075f1425da7",
+                   "pcmt-polar": "ea8f58f171338ec6e9acb8d41651279bdae26755a3e24835d5415a70f4af04e1"}
 
 
 def require(cond: bool, what: str) -> None:
@@ -1086,7 +1117,240 @@ def admission_plane(dev: torch.device, main: dict) -> dict:
     return {"admission": counted}
 
 
-def device_profile(phase: str, fn, wall_ms: float, reps: int = 3) -> None:
+def cmt_host_layers(ods: np.ndarray) -> tuple[list[np.ndarray], list[np.ndarray], bytes]:
+    """The CMT encode on the host: numpy LDGM encode and hashlib. (layers,
+    hash lists, data root)."""
+    k = ods.shape[0]
+    data = cmt.ods_symbols(ods)
+    layers, hashes = [], []
+    for _ in cmt.layer_plan(k):
+        layers.append(np.concatenate([data, ldpc.encode_host(data)]))
+        hashes.append(fast_host.sha_many(layers[-1]))
+        data = hashes[-1].reshape(-1, cmt.Q * cmt.HASH_BYTES)
+    return layers, hashes, cmt.CmtCommitments(k, tuple(bytes(h) for h in hashes[-1])).hash()
+
+
+def pcmt_host_layers(ods: np.ndarray) -> tuple[list[np.ndarray], list[np.ndarray], bytes]:
+    """The PCMT encode on the host: numpy polar encode and hashlib."""
+    k = ods.shape[0]
+    plan = pcmt.layer_plan(k)
+    layers, hashes = [polar.encode_host(cmt.ods_symbols(ods))], []
+    for j in range(len(plan)):
+        hashes.append(fast_host.sha_many(layers[-1]))
+        if j + 1 < len(plan):
+            level = np.zeros((plan[j + 1][0] * pcmt.Q, pcmt.HASH_BYTES), dtype=np.uint8)
+            level[: len(hashes[-1])] = hashes[-1]
+            for _ in range(pcmt.LOG2Q):
+                level = fast_host.sha_many(level.reshape(-1, 2 * pcmt.HASH_BYTES))
+            layers.append(polar.encode_host(level))
+    return layers, hashes, pcmt.PcmtCommitments(k, tuple(bytes(h) for h in hashes[-1])).hash()
+
+
+def codec_geometry_clear() -> None:
+    """Forget every derived code table, host and device, so the next encode
+    is cold."""
+    for fn in (ldpc.parity_indices, ldpc._device_table, polar.geometry, polar._device_plan):
+        fn.cache_clear()
+
+
+def peel_check(scheme: str, base: np.ndarray, rng: np.random.Generator, k: int) -> dict:
+    """The card's peel of the base layer, a seeded quarter erased, and of the
+    same input with one present parity symbol flipped, against the host
+    peel: bytes, known and sweeps."""
+    n = len(base)
+    known = np.ones(n, dtype=bool)
+    known[rng.choice(n, size=n // 4, replace=False)] = False
+    clean = np.where(known[:, None], base, 0).astype(np.uint8)
+    flipped = clean.copy()
+    flipped[int(np.flatnonzero(known[k * k:])[0]) + k * k, 0] ^= 0xFF
+    out = {}
+    for name, syms in (("quarter", clean), ("flipped", flipped)):
+        if scheme == codec.CMT_NAME:
+            card, host = lambda: ldpc.peel(syms, known), lambda: ldpc.peel_host(syms, known)
+        else:
+            card, host = lambda: polar.peel(k * k, syms, known), lambda: polar.peel_host(k * k, syms, known)
+        syncs = ldpc.peel_members.syncs
+        got, card_s = timed(card)
+        syncs = ldpc.peel_members.syncs - syncs
+        want, host_s = timed(host)
+        require(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]) and got[2] == want[2],
+                f"{scheme} peel on the card differs from the host peel ({name})")
+        require(syncs == got[2] + 1, f"{scheme} peel read {syncs} flags for {got[2]} sweeps")
+        out[name] = {"sweeps": got[2], "syncs": syncs, "unknown_after": int((~got[1]).sum()),
+                     "card_ms": card_s * 1e3, "host_ms": host_s * 1e3}
+    require(out["quarter"]["unknown_after"] == 0, f"{scheme} peel left a quarter-erased base incomplete")
+    return out
+
+
+def download_split(n_bytes: int, dev: torch.device, reps: int = 3) -> dict:
+    """Mean ms to bring n_bytes from the card into fresh pageable memory
+    (what `.cpu()` does), into pageable memory touched before, and into
+    pinned memory: the copy's rate apart from first-touch page faults."""
+    src = torch.ones(n_bytes, dtype=torch.uint8, device=dev)
+    touched = torch.from_numpy(np.ones(n_bytes, dtype=np.uint8))
+    pinned = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
+    out = {}
+    for name, fn in (("fresh_pageable", src.cpu), ("touched_pageable", lambda: touched.copy_(src)),
+                     ("pinned", lambda: pinned.copy_(src))):
+        out[name] = sum(timed(fn)[1] for _ in range(reps)) / reps * 1e3
+    return out
+
+
+def codec_plane(dev: torch.device, main: dict) -> dict:
+    """The cmt-ldpc and pcmt-polar codecs on the main path's k = 128 ODS:
+    encode cold and warm against the host yardstick, the frozen roots, the
+    ops (encode and peel) against their host versions, repair, sampling,
+    fraud proofs and the cache. Returns the launch counts of each counted
+    run."""
+    ods = main["ods"]
+    k = ods.shape[0]
+    counted = {}
+    report = {}
+    keys = {s: edscache.cache_key(ods, s) for s in (codec.RS2D_NAME, codec.CMT_NAME, codec.PCMT_NAME)}
+    require(len(set(keys.values())) == 3, "two schemes share a cache key")
+    for scheme, host_layers, frozen in ((codec.CMT_NAME, cmt_host_layers, FROZEN_CMT_ROOT),
+                                        (codec.PCMT_NAME, pcmt_host_layers, FROZEN_PCMT_ROOT)):
+        c = codec.get(scheme)
+        plan = (cmt if scheme == codec.CMT_NAME else pcmt).layer_plan(k)
+        # one K1 launch per layer hash, and for PCMT one per subtree level
+        want_k1 = len(plan) if scheme == codec.CMT_NAME else len(plan) + (len(plan) - 1) * pcmt.LOG2Q
+        want = {"sha256_compress": want_k1, "rs_extend_lines": 0}
+        times, rng = {}, np.random.default_rng(SEED + 9)
+
+        # 1. encode, cold (every code table derived and uploaded) and warm
+        codec_geometry_clear()
+        torch.cuda.synchronize()
+        reset_counts()
+        entry, times["encode_cold"] = timed(lambda: c.compute_entry(ods))
+        counted[f"{scheme}_encode_cold"] = read_counts()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        warm, times["encode_warm"] = timed(lambda: c.compute_entry(ods))
+        counted[f"{scheme}_encode_warm"] = read_counts()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        for run in ("encode_cold", "encode_warm"):
+            require(counted[f"{scheme}_{run}"] == want, f"{scheme} {run} launches {counted[f'{scheme}_{run}']} != {want}")
+        encode_ms = cuda_ms(lambda: c.compute_entry(ods), reps=3, warmup=1)
+        (layers, hashes, host_root), times["host_yardstick"] = timed(lambda: host_layers(ods))
+        require(entry.data_root == warm.data_root == host_root == entry.dah.hash(),
+                f"{scheme} data root on the card differs from the host yardstick")
+        require(all(np.array_equal(a, b) for a, b in zip(entry.layers + entry.hash_lists, layers + hashes))
+                and len(entry.layers) == len(layers) == len(plan), f"{scheme} layers differ from the host yardstick")
+        require(np.array_equal(entry.ods(), ods), f"{scheme} entry's ODS differs")
+        profile = device_profile(f"{scheme}_encode_profile", lambda: c.compute_entry(ods), times["encode_warm"] * 1e3,
+                                 reps=1)
+        arrays = entry.layers + entry.hash_lists + [lvl for levels in getattr(entry, "subtrees", []) for lvl in levels]
+        download_bytes = sum(a.nbytes for a in arrays)
+
+        # 2. frozen roots at k = 4 and 8 and the empty block, on the card
+        reset_counts()
+        for small, root in frozen.items():
+            got = c.compute_entry(np.random.RandomState(7).randint(0, 256, (small, small, 512), dtype=np.uint8))
+            require(got.data_root.hex() == root, f"{scheme} k={small} root {got.data_root.hex()} != frozen {root}")
+        require(c.min_entry().data_root.hex() == FROZEN_MIN_ROOT[scheme], f"{scheme} empty-block root differs")
+        counted[f"{scheme}_golden"] = read_counts()
+
+        # 3. ops: the card's encode and peel against the host versions
+        data = cmt.ods_symbols(ods)
+        if scheme == codec.CMT_NAME:
+            card_base = ldpc.encode(data).cpu().numpy()
+            require(np.array_equal(card_base, ldpc.encode_host(data)), "ldpc.encode on the card differs")
+        else:
+            card_base = polar.encode(data).cpu().numpy()
+            require(np.array_equal(card_base, polar.encode_host(data)), "polar.encode on the card differs")
+        peel = peel_check(scheme, entry.layers[0], rng, k)
+
+        # 4. repair from a seeded 3/4 of the base cells, straight from the entry
+        comm = c.commitments_from_doc(c.commitments_doc(entry), entry.data_root.hex(), k)
+        n_base = comm.n_base
+        keep = np.sort(rng.choice(n_base, size=n_base - n_base // 4, replace=False))
+        samples = {(0, int(i)): entry.layers[0][i].tobytes() for i in keep}
+        reset_counts()
+        repaired, times["repair"] = timed(lambda: c.repair(comm, samples))
+        counted[f"{scheme}_repair"] = read_counts()
+        require(np.array_equal(repaired, ods), f"{scheme} repair did not give back the ODS")
+        require(counted[f"{scheme}_repair"] == want, f"{scheme} repair launches {counted[f'{scheme}_repair']}")
+
+        # 5. sampling: seeded round trips and a tampered proof
+        t0 = time.perf_counter()
+        cells = [(0, int(i)) for i in rng.choice(n_base, size=LIGHT_CLIENTS, replace=False)]
+        for cell in cells:
+            got = c.verify_sample(comm, c.open_sample(entry, cell))
+            require(got is not None and got[0] == cell and got[1] == entry.layers[0][cell[1]].tobytes(),
+                    f"{scheme} sample {cell} did not verify")
+        times["sampling"] = time.perf_counter() - t0
+        doc = c.open_sample(entry, cells[0])
+
+        def flip_b64(text: str) -> str:
+            raw = bytearray(base64.b64decode(text))
+            raw[0] ^= 1
+            return base64.b64encode(bytes(raw)).decode()
+
+        tampered = [{**doc, "symbol": flip_b64(doc["symbol"])}]
+        if doc["steps"]:
+            tampered.append({**doc, "steps": [[flip_b64(doc["steps"][0][0])] + doc["steps"][0][1:]]
+                             + doc["steps"][1:]})
+        require(all(c.verify_sample(comm, bad_doc) is None for bad_doc in tampered),
+                f"{scheme} accepted a tampered proof")
+
+        # 6. fraud: a mis-coded entry from the malicious producer, on the card
+        reset_counts()
+        if scheme == codec.CMT_NAME:
+            bad, times["malicious_encode"] = timed(lambda: malicious.cmt_bad_parity_entry(ods, 3))
+            location = (0, 3)
+        else:
+            bad, times["malicious_encode"] = timed(lambda: malicious.pcmt_bad_parity_entry(ods))
+            location = bad.fraud_location
+        counted[f"{scheme}_malicious"] = read_counts()
+        require(counted[f"{scheme}_malicious"] == want, f"{scheme} malicious encode launches")
+        proof, times["build_fraud_proof"] = timed(lambda: c.build_fraud_proof(bad, location))
+        accepted, times["verify_fraud_proof"] = timed(lambda: c.verify_fraud_proof(bad.dah, proof))
+        require(accepted is True, f"{scheme} fraud proof refused against the bad commitments")
+        require(c.verify_fraud_proof(comm, proof) is False, f"{scheme} fraud proof accepted against honest ones")
+        all_bad = {(0, i): bad.layers[0][i].tobytes() for i in range(n_base)}
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            c.repair(bad.dah, all_bad)
+            raise RuntimeError(f"chip_smoke check failed: {scheme} repaired a mis-coded block")
+        except codec.BadEncodingDetected as e:
+            require(e.location == location, f"{scheme} repair attributes {e.location}, not {location}")
+        times["bad_repair"] = time.perf_counter() - t0
+        counted[f"{scheme}_bad_repair"] = read_counts()
+
+        # 7. the cache: a miss encodes, the second call is a hit with no launch
+        cache = edscache.EdsCache()
+        reset_counts()
+        cached = cache.get_or_compute(ods, scheme=scheme)
+        counted[f"{scheme}_cache_miss"] = read_counts()
+        reset_counts()
+        again = cache.get_or_compute(ods, scheme=scheme)
+        counted[f"{scheme}_cache_hit"] = read_counts()
+        require(again is cached and cached.data_root == entry.data_root and cache.hits == 1,
+                f"{scheme} cache did not hit")
+        require(counted[f"{scheme}_cache_miss"] == want and counted[f"{scheme}_cache_hit"] == {
+            "sha256_compress": 0, "rs_extend_lines": 0}, f"{scheme} cache launches")
+        report[scheme] = {
+            "data_root": entry.data_root.hex(), "plan": plan, "n_base": n_base, "base_mib": entry.layers[0].nbytes / 2**20,
+            "k1_per_encode": want_k1, "encode_ms_cuda_events": encode_ms, "peak_mib": peak_mib,
+            "copies_per_encode": profile["copies_per_call"], "encode_device_busy_ms": profile["device_busy_ms"],
+            "encode_idle_share": profile["idle_share"], "download_mib": download_bytes / 2**20,
+            "download_ms": download_split(download_bytes, dev), "peel": peel, "fraud_location": list(location),
+            "times_ms": {name: v * 1e3 for name, v in times.items()},
+        }
+    # the tunable-rate RS trade-study code: one axis encode on the card
+    shards = cmt.ods_symbols(ods)[:RS_TUNABLE_KN[0]]
+    _, first_s = timed(lambda: rs_tunable.encode_axis(shards, RS_TUNABLE_KN[1]))  # builds the matrices
+    (got, card_s), (want, host_s) = (timed(lambda: rs_tunable.encode_axis(shards, RS_TUNABLE_KN[1])),
+                                     timed(lambda: rs_tunable.encode_axis_host(shards, RS_TUNABLE_KN[1])))
+    require(np.array_equal(got, want), "rs_tunable.encode_axis on the card differs from the host")
+    report["rs_tunable"] = {"k_n": RS_TUNABLE_KN, "first_call_ms": first_s * 1e3, "card_ms": card_s * 1e3,
+                            "host_ms": host_s * 1e3}
+    emit("codec_plane", k=k, launches=counted, schemes=report)
+    return counted
+
+
+def device_profile(phase: str, fn, wall_ms: float, reps: int = 3) -> dict:
     """Device time of fn() by kernel, from a torch.profiler trace of `reps`
     calls after one warm-up; the busy share is held against `wall_ms`, the
     unprofiled time of one call. Host-to-device copies are counted apart:
@@ -1112,8 +1376,10 @@ def device_profile(phase: str, fn, wall_ms: float, reps: int = 3) -> None:
                 copies[e.name] = copies.get(e.name, 0) + 1 / reps
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit(phase, device_busy_ms=busy_ms, device_ops_per_call=ops / reps, h2d_copies_per_call=h2d / reps,
-         copies_per_call=copies, idle_share=1 - busy_ms / wall_ms, top_ms=[[name[:72], ms] for name, ms in top])
+    summary = {"device_busy_ms": busy_ms, "device_ops_per_call": ops / reps, "h2d_copies_per_call": h2d / reps,
+               "copies_per_call": copies, "idle_share": 1 - busy_ms / wall_ms}
+    emit(phase, **summary, top_ms=[[name[:72], ms] for name, ms in top])
+    return summary
 
 
 def timings(dev: torch.device, ods_np: np.ndarray, rng: np.random.Generator) -> dict:
@@ -1187,6 +1453,9 @@ def main() -> int:
     by_path["repair_plane"] = {name: sum(c[name] for c in repair_counts.values())
                                for name in ("sha256_compress", "rs_extend_lines")}
     by_path["admission_plane"] = admission_plane(dev, main)["admission"]
+    codec_counts = codec_plane(dev, main)
+    by_path["codec_plane"] = {name: sum(c[name] for c in codec_counts.values())
+                              for name in ("sha256_compress", "rs_extend_lines")}
     t = timings(dev, main["ods"], rng)
 
     rows = []

@@ -122,14 +122,14 @@ def test_get_or_compute_encodes_once(monkeypatch):
     calls = []
     real = edscache.compute_entry
 
-    def counting(ods, device=None):
-        calls.append(1)
-        return real(ods, device)
+    def counting(ods, device=None, scheme="rs2d-nmt"):
+        calls.append(scheme)
+        return real(ods, device, scheme)
 
     monkeypatch.setattr(edscache, "compute_entry", counting)
     entry = cache.get_or_compute(ods, device="cpu")
     assert cache.get_or_compute(ods.copy(), device="cpu") is entry
-    assert len(calls) == 1 and (cache.hits, cache.misses) == (1, 1)
+    assert calls == ["rs2d-nmt"] and (cache.hits, cache.misses) == (1, 1)
     assert cache.lookup_root(entry.data_root) is entry
     _, _, root = dah.new_dah_from_ods(ods, device="cpu")
     assert entry.data_root == root

@@ -1,8 +1,8 @@
 """The port's sampling and rs2d-nmt codec against the JAX package
 (tolerance: exact, and equal floats for the confidence arithmetic): sample
 reports for the same rng seed, codec docs, sample wire sizes and hash
-counts, the codec's repair and fraud proofs, and the registry's refusal of
-the schemes the port does not carry, at k <= 16."""
+counts, the codec's repair and fraud proofs, and the registry's three
+schemes and its refusal of unknown ones, at k <= 16."""
 
 import dataclasses
 
@@ -85,20 +85,25 @@ def test_confidence_arithmetic_matches_reference():
 
 
 def test_registry_carries_rs2d_only():
-    assert codec.names() == [codec.RS2D_NAME] and codec.registered_ids() == [codec.SCHEME_RS2D]
+    # the name predates the CMT and PCMT ports: rs2d-nmt is the default and
+    # the registry now carries the reference's three schemes
+    assert codec.names() == [codec.CMT_NAME, codec.PCMT_NAME, codec.RS2D_NAME] == jax_codec.names()
+    assert codec.registered_ids() == [codec.SCHEME_RS2D, codec.SCHEME_CMT, codec.SCHEME_PCMT]
     assert codec.default() is codec.by_id(0) is codec.get("rs2d-nmt")
     assert isinstance(codec.default(), codec_rs2d.Rs2dNmtCodec)
     assert (codec.SCHEME_RS2D, codec.SCHEME_CMT, codec.SCHEME_PCMT) == (
         jax_codec.SCHEME_RS2D, jax_codec.SCHEME_CMT, jax_codec.SCHEME_PCMT)
     assert (codec.RS2D_NAME, codec.CMT_NAME, codec.PCMT_NAME) == (
         jax_codec.RS2D_NAME, jax_codec.CMT_NAME, jax_codec.PCMT_NAME)
-    for name in (codec.CMT_NAME, codec.PCMT_NAME, "nope"):
-        with pytest.raises(codec.CodecError, match=f"unknown DA scheme '{name}' \\(registered: 0=rs2d-nmt\\)"):
-            codec.get(name)
-        with pytest.raises(codec.CodecError, match=f"'{name}'"):
-            sampling.catch_confidence(1, name)
-    for scheme_id in (codec.SCHEME_CMT, codec.SCHEME_PCMT, 7):
-        with pytest.raises(codec.CodecError, match=f"id {scheme_id} \\(registered: 0=rs2d-nmt\\)"):
+    for name in (codec.CMT_NAME, codec.PCMT_NAME):
+        assert sampling.catch_confidence(1, name) == jax_sampling.catch_confidence(1, name) == 0.25
+    listing = "0=rs2d-nmt, 1=cmt-ldpc, 2=pcmt-polar"
+    with pytest.raises(codec.CodecError, match=f"unknown DA scheme 'nope' \\(registered: {listing}\\)"):
+        codec.get("nope")
+    with pytest.raises(codec.CodecError, match="'nope'"):
+        sampling.catch_confidence(1, "nope")
+    for scheme_id in (3, 7):
+        with pytest.raises(codec.CodecError, match=f"id {scheme_id} \\(registered: {listing}\\)"):
             codec.by_id(scheme_id)
     assert issubclass(codec.CodecError, ValueError)
 

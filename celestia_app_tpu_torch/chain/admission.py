@@ -8,7 +8,7 @@ pending signatures on the card (`ops/secp256k1.verify_batch`, one
 dispatch per `MAX_DISPATCH` lanes) and computes the share commitments of
 every pending blob in one `da/commitment_device` batch (kernel K1); the
 successes fill the App's `VerifiedSigCache` and `VerifiedCommitmentCache`.
-Phase 2, the ante (not ported yet), consults the caches first, so a tx
+Phase 2, the ante (`chain/ante.py`), consults the caches first, so a tx
 admitted at CheckTx is never verified again.
 
 The caches are sound by construction: a key is put only after its
@@ -26,8 +26,8 @@ commitment half), `chain_id`, `height`, `store`, `_check_state`, and
 
 Counters (`counters`, the JAX package's telemetry names):
   admission.sig_cache_hits       a check skipped a verify via the cache
-  admission.sig_scalar_verified  the ante's scalar verifies (the ante is
-                                 not ported: stays 0 here)
+  admission.sig_scalar_verified  the ante's scalar verifies (cache
+                                 misses, counted by `chain/ante.py`)
   admission.batch_dispatches     device dispatches (lanes / MAX_DISPATCH)
   admission.batch_lanes          signatures sent through the device path
   admission.batch_verified       lanes that verified and were cached

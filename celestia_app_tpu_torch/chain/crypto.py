@@ -238,6 +238,13 @@ class PrivateKey:
         d = int.from_bytes(_sha(b"celestia_tpu/key" + seed), "big") % (_N - 1) + 1
         return cls(d)
 
+    @classmethod
+    def generate(cls) -> "PrivateKey":
+        import secrets
+
+        # key generation is operator-side entropy, never consensus
+        return cls(secrets.randbelow(_N - 1) + 1)
+
     def public_key(self) -> PublicKey:
         return PublicKey(_public_key_bytes(self.scalar))
 
@@ -245,6 +252,10 @@ class PrivateKey:
         """64-byte (r || s) low-S signature over sha256(message),
         deterministic per RFC 6979."""
         return _py_sign(self.scalar, message)
+
+
+def address_str(addr: bytes) -> str:
+    return "tia1" + addr.hex()
 
 
 @functools.lru_cache(maxsize=4096)

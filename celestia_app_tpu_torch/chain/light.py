@@ -63,7 +63,7 @@ class LightClient:
         if check_set:
             self._check_set(trusted.validators, trusted.powers)
 
-    def submit_fraud_proof(self, commitments, proof) -> bool:
+    def submit_fraud_proof(self, commitments, proof, device=None) -> bool:
         """A gossiped incorrect-coding fraud proof against a block's DA
         commitments. The proof's TYPE selects the codec through the
         registry (each codec declares its ``fraud_proof_type`` —
@@ -71,7 +71,17 @@ class LightClient:
         registration alone. If it VERIFIES — the committed roots carry
         an invalid codeword — the data root (``commitments.hash()``,
         whichever scheme) is condemned and any header carrying it will
-        be refused. Returns whether the proof checked out."""
+        be refused. Returns whether the proof checked out.
+
+        The check runs on `device` (the card unless the caller asks for
+        the CPU). Only the proof's own faults make a False verdict: a
+        proof against another scheme's commitments, or one that does not
+        parse against them (ValueError, TypeError, KeyError,
+        CodecError), is counted in ``light.malformed_fraud_proofs``. An
+        error of the device work (a RuntimeError from the card, a kernel
+        wrapper's ``cuda_build.KernelError``) is no verdict and
+        propagates."""
+        from celestia_app_tpu_torch import cuda_build
         from celestia_app_tpu_torch.da import codec as dacodec
 
         codec = None
@@ -86,15 +96,20 @@ class LightClient:
                 break
         if codec is None:
             return False
-        try:
-            ok = codec.verify_fraud_proof(commitments, proof)
-        except Exception:
-            # untrusted input end to end: a proof whose type does not
-            # match the commitments' scheme (e.g. a BEFP against
-            # CmtCommitments) must be refused, never escape — this API
-            # promises a bool verdict on gossip
-            from celestia_app_tpu_torch.utils import telemetry
+        from celestia_app_tpu_torch.utils import telemetry
 
+        if not isinstance(commitments, codec.commitments_type()):
+            # untrusted input end to end: a proof of another scheme than
+            # the commitments' (e.g. a BEFP against CmtCommitments) is
+            # refused, never escapes — this API promises a bool verdict
+            telemetry.incr("light.malformed_fraud_proofs")
+            return False
+        try:
+            ok = codec.verify_fraud_proof(commitments, proof, device)
+        except cuda_build.KernelError:
+            raise
+        except (ValueError, TypeError, KeyError, dacodec.CodecError):
+            # a proof whose members do not parse against the commitments
             telemetry.incr("light.malformed_fraud_proofs")
             return False
         if not ok:

@@ -32,6 +32,27 @@ _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(Exception):
+    """An error of a kernel wrapper: arguments it cannot launch on, or a
+    launch that failed. Each is raised as the builtin kind it is
+    (ValueError, TypeError, RuntimeError), so callers that catch those
+    still do; a caller that turns untrusted input's ValueErrors into a
+    verdict re-raises this class first, since a wrapper's error is no
+    verdict (chain/light.LightClient.submit_fraud_proof)."""
+
+
+class KernelValueError(KernelError, ValueError):
+    pass
+
+
+class KernelTypeError(KernelError, TypeError):
+    pass
+
+
+class KernelLaunchError(KernelError, RuntimeError):
+    pass
+
+
 def nvcc() -> str:
     """Path of the CUDA compiler: $CUDA_HOME/bin/nvcc, the toolkit's
     default install, or ``nvcc`` on PATH."""

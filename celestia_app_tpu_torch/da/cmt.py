@@ -428,6 +428,9 @@ class CmtCodec(codec_mod.Codec):
     def fraud_proof_type(self) -> type:
         return CmtFraudProof
 
+    def commitments_type(self) -> type:
+        return CmtCommitments
+
     def fraud_cells(self, commitments, location) -> list[tuple]:
         layer, equation = location
         return [(layer, m) for m in equation_members(commitments, layer, equation)]

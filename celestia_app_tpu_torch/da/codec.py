@@ -145,6 +145,11 @@ class Codec:
         """The scheme's fraud-proof class."""
         raise NotImplementedError
 
+    def commitments_type(self) -> type:
+        """The scheme's commitments class (what ``commitments_from_doc``
+        returns); a scheme with a fraud-proof class declares it too."""
+        raise NotImplementedError
+
     def fraud_cells(self, commitments, location) -> list[tuple]:
         """The sample cells a light node must hold, served and verified, to
         assemble the fraud proof for ``location`` (schemes whose proofs are

@@ -161,5 +161,8 @@ class Rs2dNmtCodec(codec_mod.Codec):
     def fraud_proof_type(self) -> type:
         return fraud.BadEncodingProof
 
+    def commitments_type(self) -> type:
+        return DataAvailabilityHeader
+
 
 codec_mod.register(Rs2dNmtCodec())

@@ -432,6 +432,9 @@ class PcmtCodec(codec_mod.Codec):
     def fraud_proof_type(self) -> type:
         return PcmtFraudProof
 
+    def commitments_type(self) -> type:
+        return PcmtCommitments
+
     def fraud_cells(self, commitments, location) -> list[tuple]:
         layer, equation = location
         return [(layer, m) for m in equation_members(commitments, layer, equation)]

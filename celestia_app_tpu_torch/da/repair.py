@@ -40,10 +40,17 @@ axis are written back. Attribution is deterministic in both engines: rows
 before columns within a sweep, each in ascending index order, and for a
 fully-present axis the codeword check before the root check.
 
-Counts of decoded axes (batched, scalar, inconsistent) are plain module
-counters in `counters`; the reference's CELESTIA_REPAIR_ENGINE and
+Spans and telemetry are the reference's: every sweep is a
+``da.repair.sweep`` span and every batched verification a
+``da.repair.verify_roots`` span, written to the `traces` the caller passes
+(a light node passes its own TraceTables); decoded axes count in
+``repair.axes_batched``, ``repair.axes_scalar`` and
+``repair.inconsistent_axes``. The same counts stay in the module's plain
+`counters` dict. The batched engine decodes an inconsistent axis on the
+device too, so its ``repair.axes_batched`` counts every axis it decoded,
+inconsistent ones included. The reference's CELESTIA_REPAIR_ENGINE and
 CELESTIA_REPAIR_MIN_BATCH settings are not read (the `engine` argument
-picks the engine); the reference's spans and telemetry are not ported.
+picks the engine).
 """
 
 from __future__ import annotations
@@ -51,16 +58,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from celestia_app_tpu_torch import appconsts
+from celestia_app_tpu_torch import appconsts, obs
 from celestia_app_tpu_torch import device as device_mod
 from celestia_app_tpu_torch.da import fraud
 from celestia_app_tpu_torch.ops import leopard, nmt, rs
-from celestia_app_tpu_torch.utils import nmt_host
+from celestia_app_tpu_torch.utils import nmt_host, telemetry
 
 NS = appconsts.NAMESPACE_SIZE
 SHARE = appconsts.SHARE_SIZE
 
 counters = {"axes_batched": 0, "axes_scalar": 0, "inconsistent_axes": 0}
+
+
+def _count(name: str, by: int) -> None:
+    """One count in both the module's `counters` and the ``repair.*``
+    telemetry."""
+    counters[name] += by
+    telemetry.incr(f"repair.{name}", by)
 
 
 class BadEncodingError(Exception):
@@ -119,6 +133,7 @@ def repair_eds(
     engine: str = "batched",
     device=None,
     field: int | None = None,
+    traces=None,
 ) -> np.ndarray:
     """Rebuild the full (2k, 2k, 512) EDS from the shares marked present.
 
@@ -132,15 +147,16 @@ def repair_eds(
     unless the caller asks for the CPU) or "scalar" (the per-axis host
     reference, which uses no device). `field` forces the code's field
     (8 or 16 bits); by default the protocol's choice for k, so squares
-    wider than 128 decode in GF(2^16)."""
+    wider than 128 decode in GF(2^16). `traces` pins the span sink (a
+    light node passes its own TraceTables)."""
     if engine not in ("batched", "scalar"):
         raise ValueError(f"repair engine must be 'batched' or 'scalar', not {engine!r}")
     symbols, present, two_k = _validate(symbols, present, row_roots, col_roots)
     field = leopard.field_for(two_k // 2, field)
     if engine == "scalar":
-        return _repair_scalar(symbols, present, row_roots, col_roots, two_k, field)
+        return _repair_scalar(symbols, present, row_roots, col_roots, two_k, field, traces)
     return _repair_batched(symbols, present, row_roots, col_roots, two_k,
-                           device_mod.resolve(device), field)
+                           device_mod.resolve(device), field, traces)
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +164,7 @@ def repair_eds(
 # ---------------------------------------------------------------------------
 
 
-def _repair_scalar(symbols, present, row_roots, col_roots, two_k, field) -> np.ndarray:
+def _repair_scalar(symbols, present, row_roots, col_roots, two_k, field, traces) -> np.ndarray:
     k = two_k // 2
     verified_rows = [False] * two_k
     verified_cols = [False] * two_k
@@ -175,36 +191,39 @@ def _repair_scalar(symbols, present, row_roots, col_roots, two_k, field) -> np.n
             raise BadEncodingError("col", c)
         verified_cols[c] = True
 
+    sweep = 0
     while True:
+        sweep += 1
         progress = False
-        for r in range(two_k):
-            if verified_rows[r]:
-                continue
-            n = int(present[r].sum())
-            if n == two_k:
-                _finish_row(r, check_rs=True)
-                progress = True
-            elif n >= k:
-                rec = rs.repair_axis(symbols[r], list(np.flatnonzero(present[r])), field)
-                symbols[r] = rec.reshape(two_k, SHARE)
-                counters["axes_scalar"] += 1
-                _finish_row(r)
-                present[r] = True
-                progress = True
-        for c in range(two_k):
-            if verified_cols[c]:
-                continue
-            n = int(present[:, c].sum())
-            if n == two_k:
-                _finish_col(c, check_rs=True)
-                progress = True
-            elif n >= k:
-                rec = rs.repair_axis(symbols[:, c, :], list(np.flatnonzero(present[:, c])), field)
-                symbols[:, c, :] = rec.reshape(two_k, SHARE)
-                counters["axes_scalar"] += 1
-                _finish_col(c)
-                present[:, c] = True
-                progress = True
+        with obs.span("da.repair.sweep", traces=traces, engine="scalar", sweep=sweep):
+            for r in range(two_k):
+                if verified_rows[r]:
+                    continue
+                n = int(present[r].sum())
+                if n == two_k:
+                    _finish_row(r, check_rs=True)
+                    progress = True
+                elif n >= k:
+                    rec = rs.repair_axis(symbols[r], list(np.flatnonzero(present[r])), field)
+                    symbols[r] = rec.reshape(two_k, SHARE)
+                    _count("axes_scalar", 1)
+                    _finish_row(r)
+                    present[r] = True
+                    progress = True
+            for c in range(two_k):
+                if verified_cols[c]:
+                    continue
+                n = int(present[:, c].sum())
+                if n == two_k:
+                    _finish_col(c, check_rs=True)
+                    progress = True
+                elif n >= k:
+                    rec = rs.repair_axis(symbols[:, c, :], list(np.flatnonzero(present[:, c])), field)
+                    symbols[:, c, :] = rec.reshape(two_k, SHARE)
+                    _count("axes_scalar", 1)
+                    _finish_col(c)
+                    present[:, c] = True
+                    progress = True
         if all(verified_rows) and all(verified_cols):
             return symbols
         if not progress:
@@ -288,15 +307,15 @@ def _decode_phase(sym, present, axis: str, verified, two_k: int, field: int) -> 
         if bad.size:
             pick = torch.from_numpy(bad).to(sym.device)
             values.index_copy_(0, pick, run.decode_fwht(batch.index_select(0, pick)))
-            counters["inconsistent_axes"] += int(bad.size)
+            _count("inconsistent_axes", int(bad.size))
         _put_missing(sym, axis, sel, run.missing_index, values)
-        counters["axes_batched"] += len(axes)
+        _count("axes_batched", len(axes))
         decoded += axes
     return sorted(full + decoded), set(full)
 
 
 def _verify_phase(sym, present, axis: str, verified, roots, completed, full_set, two_k: int,
-                  field: int) -> bool:
+                  field: int, traces) -> bool:
     """Batched verification of every axis completed in this phase: one
     eds_axis_roots reduction recomputes all their roots, one decode over
     the pattern "all present" covers the fully-present axes' codeword
@@ -307,18 +326,19 @@ def _verify_phase(sym, present, axis: str, verified, roots, completed, full_set,
         return False
     k = two_k // 2
     slabs = _take(sym, axis, _select(completed, sym.device))
-    codeword_ok = {}
-    if full_set:
-        ordered = sorted(full_set)
-        if len(ordered) == len(completed):
-            full_slabs = slabs
-        else:
-            pos = {i: b for b, i in enumerate(completed)}
-            pick = torch.tensor([pos[i] for i in ordered], dtype=torch.int64, device=sym.device)
-            full_slabs = slabs.index_select(0, pick)
-        rec = rs.repair_axes_fn(k, tuple(range(two_k)), sym.device, field)(full_slabs)
-        codeword_ok = dict(zip(ordered, _equal_per_axis(rec, full_slabs)))
-    got = nmt.eds_axis_roots(slabs, completed, k, sym.device)
+    with obs.span("da.repair.verify_roots", traces=traces, axis=axis, axes=len(completed)):
+        codeword_ok = {}
+        if full_set:
+            ordered = sorted(full_set)
+            if len(ordered) == len(completed):
+                full_slabs = slabs
+            else:
+                pos = {i: b for b, i in enumerate(completed)}
+                pick = torch.tensor([pos[i] for i in ordered], dtype=torch.int64, device=sym.device)
+                full_slabs = slabs.index_select(0, pick)
+            rec = rs.repair_axes_fn(k, tuple(range(two_k)), sym.device, field)(full_slabs)
+            codeword_ok = dict(zip(ordered, _equal_per_axis(rec, full_slabs)))
+        got = nmt.eds_axis_roots(slabs, completed, k, sym.device)
     for b, i in enumerate(completed):
         if i in full_set and not codeword_ok[i]:
             raise BadEncodingError(axis, i)
@@ -332,17 +352,22 @@ def _verify_phase(sym, present, axis: str, verified, roots, completed, full_set,
     return True
 
 
-def _repair_batched(symbols, present, row_roots, col_roots, two_k, device, field) -> np.ndarray:
+def _repair_batched(symbols, present, row_roots, col_roots, two_k, device, field, traces) -> np.ndarray:
     sym = torch.from_numpy(symbols).to(device)
     verified_rows = [False] * two_k
     verified_cols = [False] * two_k
+    sweep = 0
     while True:
+        sweep += 1
         progress = False
-        for axis, verified, roots in (("row", verified_rows, row_roots),
-                                      ("col", verified_cols, col_roots)):
-            completed, full_set = _decode_phase(sym, present, axis, verified, two_k, field)
-            if _verify_phase(sym, present, axis, verified, roots, completed, full_set, two_k, field):
-                progress = True
+        with obs.span("da.repair.sweep", traces=traces, engine="batched", sweep=sweep) as sp:
+            for axis, verified, roots in (("row", verified_rows, row_roots),
+                                          ("col", verified_cols, col_roots)):
+                completed, full_set = _decode_phase(sym, present, axis, verified, two_k, field)
+                if _verify_phase(sym, present, axis, verified, roots, completed, full_set, two_k, field,
+                                 traces):
+                    progress = True
+            sp.set(progress=progress)
         if all(verified_rows) and all(verified_cols):
             return sym.cpu().numpy()
         if not progress:

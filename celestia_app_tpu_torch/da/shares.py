@@ -1,7 +1,8 @@
 """Share codec: the 512-byte atomic units of the data square.
 
 Copied from celestia_app_tpu/da/shares.py (the encoding half that
-``square.build`` needs). Byte-exact implementation of
+``square.build`` needs, and the share properties and sparse-share parse
+that the blob follower needs). Byte-exact implementation of
 specs/src/specs/shares.md (reference implementation: go-square/shares):
 
   share := namespace(29) || info(1) || [sequence_len(4, BE, first share only)]
@@ -65,6 +66,43 @@ class Share:
         if len(self.raw) != c.SHARE_SIZE:
             raise ValueError(f"share must be {c.SHARE_SIZE} bytes, got {len(self.raw)}")
 
+    @property
+    def namespace(self) -> Namespace:
+        return Namespace(self.raw[: c.NAMESPACE_SIZE])
+
+    @property
+    def info_byte(self) -> int:
+        return self.raw[c.NAMESPACE_SIZE]
+
+    @property
+    def version(self) -> int:
+        return self.info_byte >> 1
+
+    @property
+    def is_sequence_start(self) -> bool:
+        return bool(self.info_byte & 1)
+
+    def sequence_len(self) -> int:
+        if not self.is_sequence_start:
+            raise ValueError("sequence_len only present on the first share")
+        off = c.NAMESPACE_SIZE + c.SHARE_INFO_BYTES
+        return int.from_bytes(self.raw[off : off + c.SEQUENCE_LEN_BYTES], "big")
+
+    def is_compact(self) -> bool:
+        return self.namespace in (ns_mod.TX_NAMESPACE, ns_mod.PAY_FOR_BLOB_NAMESPACE)
+
+    def is_padding(self) -> bool:
+        return self.is_sequence_start and not self.is_compact() and self.sequence_len() == 0
+
+    def content(self) -> bytes:
+        """Data region (after header fields; includes any zero fill)."""
+        off = c.NAMESPACE_SIZE + c.SHARE_INFO_BYTES
+        if self.is_sequence_start:
+            off += c.SEQUENCE_LEN_BYTES
+        if self.is_compact():
+            off += c.SHARE_RESERVED_BYTES
+        return self.raw[off:]
+
 
 def _info_byte(version: int, sequence_start: bool) -> int:
     if version not in c.SUPPORTED_SHARE_VERSIONS:
@@ -102,6 +140,17 @@ def split_blob(ns: Namespace, data: bytes, share_version: int = 0) -> list[Share
         shares.append(Share(header + chunk + b"\x00" * (take - len(chunk))))
         first = False
     return shares
+
+
+def parse_sparse_shares(shares: list[Share]) -> bytes:
+    """Reassemble one blob from its share sequence."""
+    if not shares or not shares[0].is_sequence_start:
+        raise ValueError("sequence must begin with a start share")
+    total = shares[0].sequence_len()
+    data = b"".join(s.content() for s in shares)
+    if len(data) < total:
+        raise ValueError("share sequence shorter than sequence_len")
+    return data[:total]
 
 
 # ---------------------------------------------------------------------------

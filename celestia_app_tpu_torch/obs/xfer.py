@@ -177,6 +177,19 @@ def to_host(value, site: str):
     return out
 
 
+def ensure_host(value, site: str):
+    """Materialize-if-device: a tensor on a device comes back through the
+    counted copy (`to_host`, attributed to `site`); anything already on
+    the host (a numpy array, a CPU tensor) passes through as a numpy array
+    and counts nothing — the helper for boundary-normalization call sites
+    whose inputs are only sometimes device-resident (a ledger row for a
+    zero-copy host read would be worse than none)."""
+    if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+        return to_host(value, site)
+    with _explicit():
+        return value.numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+
+
 # -- the residency pin -------------------------------------------------------
 
 _probe_lock = threading.Lock()

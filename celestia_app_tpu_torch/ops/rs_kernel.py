@@ -68,11 +68,12 @@ def extend_pass_ref(x: torch.Tensor, operand: torch.Tensor) -> torch.Tensor:
 def _check_operand(operand: torch.Tensor, k: int, device: torch.device) -> None:
     side = padded(k)
     if operand.dtype != torch.uint8 or operand.shape != (side, side):
-        raise ValueError(f"operand must be ({side}, {side}) uint8, got {tuple(operand.shape)} {operand.dtype}")
+        raise cuda_build.KernelValueError(
+            f"operand must be ({side}, {side}) uint8, got {tuple(operand.shape)} {operand.dtype}")
     if not operand.is_contiguous():
-        raise ValueError("operand must be contiguous")
+        raise cuda_build.KernelValueError("operand must be contiguous")
     if operand.device != device:
-        raise ValueError(f"operand on {operand.device}, lines on {device}")
+        raise cuda_build.KernelValueError(f"operand on {operand.device}, lines on {device}")
 
 
 def _layout(view: torch.Tensor, role: str) -> tuple[int, int, int, int, int, int, int]:
@@ -81,19 +82,19 @@ def _layout(view: torch.Tensor, role: str) -> tuple[int, int, int, int, int, int
     view, in 512-byte share slots of its storage (one block of stride 0
     for a 3-D view)."""
     if view.dtype != torch.uint8 or view.dim() not in (3, 4) or view.shape[-1] != SHARE:
-        raise ValueError(f"{role} must be (lines, k, {SHARE}) or (blocks, lines, k, {SHARE}) uint8, "
-                         f"got {tuple(view.shape)} {view.dtype}")
+        raise cuda_build.KernelValueError(f"{role} must be (lines, k, {SHARE}) or (blocks, lines, k, {SHARE}) "
+                                          f"uint8, got {tuple(view.shape)} {view.dtype}")
     blocks, block_stride = (view.shape[0], view.stride(0)) if view.dim() == 4 else (1, 0)
     lines, k, _ = view.shape[-3:]
     line_stride, shard_stride, byte_stride = view.stride()[-3:]
     if blocks == 1:
         block_stride = 0
     if byte_stride != 1 or view.storage_offset() % SHARE:
-        raise ValueError(f"{role}: the bytes of a share must be contiguous and share-aligned")
+        raise cuda_build.KernelValueError(f"{role}: the bytes of a share must be contiguous and share-aligned")
     strides = (line_stride, shard_stride) + ((block_stride,) if blocks > 1 else ())
     if min(strides) < SHARE or any(st % SHARE for st in strides):
-        raise ValueError(f"{role}: block, line and shard strides must be positive multiples of {SHARE}, "
-                         f"got {view.stride()}")
+        raise cuda_build.KernelValueError(
+            f"{role}: block, line and shard strides must be positive multiples of {SHARE}, got {view.stride()}")
     return (view.storage_offset() // SHARE, blocks, block_stride // SHARE, lines, line_stride // SHARE,
             k, shard_stride // SHARE)
 
@@ -119,33 +120,33 @@ def _no_self_overlap(a: tuple) -> bool:
 def _check_groups(groups) -> int:
     """Validates the line groups of one launch and returns k."""
     if not 1 <= len(groups) <= MAX_GROUPS:
-        raise ValueError(f"a launch takes 1 to {MAX_GROUPS} line groups, got {len(groups)}")
+        raise cuda_build.KernelValueError(f"a launch takes 1 to {MAX_GROUPS} line groups, got {len(groups)}")
     views = []
     for src, dst in groups:
         s, d = _layout(src, "source"), _layout(dst, "destination")
         if src.shape != dst.shape:
-            raise ValueError(f"source {tuple(src.shape)} and destination {tuple(dst.shape)} differ")
+            raise cuda_build.KernelValueError(f"source {tuple(src.shape)} and destination {tuple(dst.shape)} differ")
         views.append((src, s, False))
         views.append((dst, d, True))
     k = groups[0][0].shape[-2]
     if any(src.shape[-2] != k for src, _ in groups):
-        raise ValueError("all line groups of a launch must have the same k")
+        raise cuda_build.KernelValueError("all line groups of a launch must have the same k")
     if k & (k - 1) or not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be a power of two <= {MAX_K}, got {k}")
+        raise cuda_build.KernelValueError(f"k must be a power of two <= {MAX_K}, got {k}")
     dev = groups[0][0].device
     if any(v.device != dev for v, _, _ in views):
-        raise ValueError("all lines of a launch must be on one device")
+        raise cuda_build.KernelValueError("all lines of a launch must be on one device")
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
+        raise cuda_build.KernelValueError(f"unsupported device {dev}")
     for i, (a, la, a_dst) in enumerate(views):
         if a_dst and not _no_self_overlap(la):
-            raise ValueError("a destination overlaps itself")
+            raise cuda_build.KernelValueError("a destination overlaps itself")
         for b, lb, b_dst in views[i + 1:]:
             if not (a_dst or b_dst):
                 continue
             same = a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
             if same and not _disjoint(la, lb):
-                raise ValueError("a destination overlaps a source or another destination")
+                raise cuda_build.KernelValueError("a destination overlaps a source or another destination")
     return k
 
 
@@ -183,7 +184,7 @@ def extend_lines(groups, operand: torch.Tensor) -> None:
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(desc, len(groups), operand.data_ptr(), k, stream)
     if err != 0:
-        raise RuntimeError(f"rs_extend_lines launch failed: CUDA error {err}")
+        raise cuda_build.KernelLaunchError(f"rs_extend_lines launch failed: CUDA error {err}")
     cuda_build.count_launch(extend_lines)
 
 
@@ -194,9 +195,9 @@ def extend_pass(x: torch.Tensor, operand: torch.Tensor) -> torch.Tensor:
     """(k, k, 512) uint8 data shards per row -> (k, k, 512) uint8 parity in
     a fresh tensor: one launch of K2 over k contiguous lines."""
     if x.dtype != torch.uint8 or x.dim() != 3 or x.shape != (x.shape[0], x.shape[0], SHARE):
-        raise ValueError(f"x must be (k, k, {SHARE}) uint8, got {tuple(x.shape)} {x.dtype}")
+        raise cuda_build.KernelValueError(f"x must be (k, k, {SHARE}) uint8, got {tuple(x.shape)} {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
+        raise cuda_build.KernelValueError("x must be contiguous")
     out = torch.empty_like(x)
     extend_lines(((x, out),), operand)
     return out
@@ -210,8 +211,8 @@ def extend_eds(eds: torch.Tensor, launch: str, operand: torch.Tensor) -> None:
     n = eds.shape[-2]
     if (eds.dtype != torch.uint8 or eds.dim() not in (3, 4) or eds.shape[-3:] != (n, n, SHARE) or n % 2
             or not eds.is_contiguous()):
-        raise ValueError(f"eds must be a contiguous (2k, 2k, {SHARE}) or (B, 2k, 2k, {SHARE}) uint8 "
-                         f"tensor, got {tuple(eds.shape)} {eds.dtype}")
+        raise cuda_build.KernelValueError(f"eds must be a contiguous (2k, 2k, {SHARE}) or (B, 2k, 2k, {SHARE}) "
+                                          f"uint8 tensor, got {tuple(eds.shape)} {eds.dtype}")
     k = n // 2
     rows, cols = eds.dim() - 3, eds.dim() - 2  # the square's axes in the views
     if launch == "rows_cols":
@@ -221,5 +222,5 @@ def extend_eds(eds: torch.Tensor, launch: str, operand: torch.Tensor) -> None:
     elif launch == "q3":
         groups = ((eds[..., k:, :k, :], eds[..., k:, k:, :]),)
     else:
-        raise ValueError(f"launch must be 'rows_cols' or 'q3', got {launch!r}")
+        raise cuda_build.KernelValueError(f"launch must be 'rows_cols' or 'q3', got {launch!r}")
     extend_lines(groups, operand)

@@ -70,25 +70,25 @@ def compress_words(blocks: torch.Tensor) -> torch.Tensor:
     On a CUDA tensor this launches K1 and counts the launch in
     ``compress_words.launches``; on a CPU tensor it is the plain version."""
     if blocks.dtype != torch.int32:
-        raise TypeError(f"blocks must be int32 words, got {blocks.dtype}")
+        raise cuda_build.KernelTypeError(f"blocks must be int32 words, got {blocks.dtype}")
     if blocks.dim() != 3 or blocks.shape[1] != 16:
-        raise ValueError(f"blocks must be (nblocks, 16, N), got {tuple(blocks.shape)}")
+        raise cuda_build.KernelValueError(f"blocks must be (nblocks, 16, N), got {tuple(blocks.shape)}")
     nblocks, _, n = blocks.shape
     if nblocks == 0 or n == 0:
-        raise ValueError(f"nothing to compress: {tuple(blocks.shape)}")
+        raise cuda_build.KernelValueError(f"nothing to compress: {tuple(blocks.shape)}")
     if not blocks.is_contiguous():
-        raise ValueError("blocks must be contiguous")
+        raise cuda_build.KernelValueError("blocks must be contiguous")
     if blocks.device.type == "cpu":
         return compress_words_ref(blocks)
     if blocks.device.type != "cuda":
-        raise ValueError(f"unsupported device {blocks.device}")
+        raise cuda_build.KernelValueError(f"unsupported device {blocks.device}")
     out = torch.empty((8, n), dtype=torch.int32, device=blocks.device)
     fn = _entry()
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(blocks.data_ptr(), out.data_ptr(), nblocks, n, stream)
     if err != 0:
-        raise RuntimeError(f"sha256_compress launch failed: CUDA error {err}")
+        raise cuda_build.KernelLaunchError(f"sha256_compress launch failed: CUDA error {err}")
     cuda_build.count_launch(compress_words)
     return out
 

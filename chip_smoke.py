@@ -147,6 +147,32 @@ final line is never printed):
    line (per height: wall time, rounds, gossip bytes; the POST and gossip
    times, blocksync seconds per height, state-sync seconds and chunks,
    sample and read latency, launches by validator, peak memory);
+   then, on the same live chain before its services shut down, the light
+   plane (`light_plane`): a port NodeService beside the entry validator's
+   service (as `validator-serve --http` puts one) answers
+   /da/extend_commit of the k = 128 ODS with the committed data root (19
+   K1 + 2 K2 cold, none on the repeat) and a verified /da/prove_shares;
+   four DASers on cuda (the DASerConfig defaults) sample every height
+   with no launch and a restarted one samples nothing; a followed PFB
+   namespace's blobs equal the blocks' and an absent one verifies absent,
+   with no launch, and a restarted follower reads nothing; a quarter of
+   the k = 128 rows withheld is caught by a seeded DASer that reads live
+   cells only (a withholder publishes no pack), its 49,152 served cells
+   verified on the host and the 64 withheld rows rebuilt on the card
+   (recovered, 6 K2 + 27 K1); 8 PFBs through TxClient over
+   HttpNodeClient (each gas from a /simulate_tx) commit in round 0 at the entry's
+   next slot and read back byte-equal; a certified k = 128 non-codeword
+   past the tip (one flipped parity cell, half its row withheld) halts a
+   seeded hunter with a BEFP verified on the card (2 K2 + 9 K1), its root
+   condemned, a reborn hunter stays halted and the other DASers do not.
+   It requires every launch attributed (shim, repair, BEFP, fixture,
+   serving provers, the validators' squares), unmoved http.500,
+   light.malformed_fraud_proofs, daser.befp_failed,
+   daser.pack_chunk_rejected, follower.verify_failures,
+   txclient.sim_fallback, loop, reject and error counters, and prints one
+   `light_plane` line (per step: host time, launches by source, requests
+   and bytes per route; the escalations' fetch, host-verify and repair
+   split from the DASers' own spans and repair timer; peak memory);
 11. the two other codecs on the same ODS, on cuda, for cmt-ldpc and
    pcmt-polar each: compute_entry cold (every code table derived and
    uploaded) and warm, with the K1 launches of the layer plan (4 for CMT,
@@ -207,6 +233,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import dataclasses
+import errno
 import hashlib
 import json
 import math
@@ -231,7 +258,9 @@ from celestia_app_tpu_torch.chain import app as app_mod
 from celestia_app_tpu_torch.chain import block as block_mod
 from celestia_app_tpu_torch.chain import node as node_mod
 from celestia_app_tpu_torch.chain import state as state_mod
+from celestia_app_tpu_torch.chain import light as light_mod
 from celestia_app_tpu_torch.chain import tx as tx_mod
+from celestia_app_tpu_torch.client import follower as follower_mod
 from celestia_app_tpu_torch.client import tx_client
 from celestia_app_tpu_torch.da import (
     blob,
@@ -269,7 +298,10 @@ from celestia_app_tpu_torch.ops import (
 from celestia_app_tpu_torch.obs import xfer
 from celestia_app_tpu_torch.net import transport
 from celestia_app_tpu_torch.parallel import mesh_engine, streaming
-from celestia_app_tpu_torch.service import validator_server
+from celestia_app_tpu_torch.das import checkpoint as checkpoint_mod
+from celestia_app_tpu_torch.das import daser as daser_mod
+from celestia_app_tpu_torch.service import da_service, validator_server
+from celestia_app_tpu_torch.service import server as node_server
 from celestia_app_tpu_torch.testing import malicious
 from celestia_app_tpu_torch.utils import fast_host, merkle_host, nmt_host, telemetry
 from celestia_app_tpu_torch.wire import codec as wire_codec
@@ -2209,10 +2241,13 @@ def run_height(gates: list, target: int) -> float:
 
 
 class GossipBytes:
-    """Bytes of the phase's peer traffic, read off the requests the port's
-    transport hands to urllib (no second encoding): the bodies POSTed on
-    /gossip/* by height (tx announces under "tx"), and the Content-Length
-    of the bodies that tx pulls and commit-range pulls receive."""
+    """The HTTP traffic of the process, read off the requests the port's
+    transport hands to urllib (no second encoding): per route path, the
+    requests, the request body bytes and the response Content-Length
+    (`routes`; `add` books a client that speaks http.client); of the peer
+    traffic, the bodies POSTed on /gossip/* by height (tx announces under
+    "tx"), and the Content-Length of the bodies that tx pulls and
+    commit-range pulls receive."""
 
     HEIGHT = re.compile(rb'"height": (\d+)')
 
@@ -2220,7 +2255,28 @@ class GossipBytes:
         self.lock = threading.Lock()
         self.sent: dict = {}
         self.pulled: dict = {}
+        self.routes: dict = {}
         self.orig = None
+
+    def add(self, path: str, sent: int, received: int) -> None:
+        with self.lock:
+            row = self.routes.setdefault(path, [0, 0, 0])
+            row[0] += 1
+            row[1] += sent
+            row[2] += received
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            return {k: list(v) for k, v in self.routes.items()}
+
+    def since(self, before: dict) -> dict:
+        """{path: [requests, bytes sent, bytes received]} since `before`."""
+        out = {}
+        for path, row in self.snapshot().items():
+            diff = [a - b for a, b in zip(row, before.get(path, [0, 0, 0]))]
+            if any(diff):
+                out[path] = diff
+        return out
 
     def install(self) -> None:
         import urllib.request
@@ -2229,7 +2285,8 @@ class GossipBytes:
 
         def urlopen(req, *a, **kw):
             resp = orig(req, *a, **kw)
-            path = urllib.parse.urlparse(getattr(req, "full_url", "")).path
+            path = urllib.parse.urlparse(getattr(req, "full_url", req)).path
+            self.add(path, len(getattr(req, "data", None) or b""), int(resp.headers.get("Content-Length", 0)))
             if path.startswith("/gossip/"):
                 with self.lock:
                     if getattr(req, "data", None):
@@ -2247,6 +2304,22 @@ class GossipBytes:
 
         if self.orig is not None:
             urllib.request.urlopen = self.orig
+
+
+def bind_again(make):
+    """(make(), retries): a service rebound on a port it held a moment ago,
+    retried while another socket of the process (an ephemeral source port
+    of a client connection still open) holds that port."""
+    deadline = time.monotonic() + NETWORK_WAIT_S
+    retries = 0
+    while True:
+        try:
+            return make(), retries
+        except OSError as e:
+            if e.errno != errno.EADDRINUSE or time.monotonic() > deadline:
+                raise
+            retries += 1
+            time.sleep(0.2)
 
 
 def network_validator(name: str, priv, gen: dict, home: str, dev: torch.device, **kw):
@@ -2364,14 +2437,16 @@ def big_height_checks(nodes: list, entry, url: str, hk: int) -> dict:
     return served
 
 
-def network_plane(dev: torch.device, honest_raws: list[bytes]) -> dict:
+def network_plane(dev: torch.device, honest_raws: list[bytes]) -> tuple[dict, dict]:
     """Four port ValidatorServices on the card, each with a ConsensusReactor
     gossiping over 127.0.0.1, commit the admission plane's 1,110 honest
     raws (POSTed to one validator, carried to the others by the CAT
     gossip); the k = 128 height is sampled and read over HTTP, one
     validator is down over the big heights and blocksyncs back, a fifth
     joins by chunked state sync, and a SocketNetwork drives four further
-    services. Returns the launch counts of the phase."""
+    services. Then, on the same live chain before its services shut
+    down, the light plane (`light_plane`). Returns the launch counts of
+    the two phases."""
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2464,7 +2539,7 @@ def network_plane(dev: torch.device, honest_raws: list[bytes]) -> dict:
             replayed = vnode.replay_wal()
         nodes[victim_i] = vnode
         behind = vnode.app.height
-        svcs[victim_i] = validator_server.ValidatorService(vnode, port=victim_port)
+        svcs[victim_i], bind_retries = bind_again(lambda: validator_server.ValidatorService(vnode, port=victim_port))
         svcs[victim_i].serve_background()
         gates[victim_i] = network_reactor(tally, svcs[victim_i], [u for j, u in enumerate(urls) if j != victim_i])
         vr = svcs[victim_i].reactor
@@ -2571,7 +2646,7 @@ def network_plane(dev: torch.device, honest_raws: list[bytes]) -> dict:
              gossip_pulled_bytes=gossip.pulled, gossip_tx_bytes=gossip.sent.get("tx", 0),
              mempool_gossip={r.vnode.name: dict(r.mempool_gossip.stats) for r in reactors},
              restart={"from_height": behind, "wal_replayed": replayed, "blocksync_s": blocksync_s,
-                      "per_height": synced},
+                      "per_height": synced, "bind_retries": bind_retries},
              state_sync={"height": manifest["height"], "chunks": manifest["n_chunks"], "s": statesync_s,
                          "fetched": client.stats["fetched"], "tail_heights": h - manifest["height"],
                          "tail_s": joiner_tail_s},
@@ -2579,7 +2654,9 @@ def network_plane(dev: torch.device, honest_raws: list[bytes]) -> dict:
              sig_scalar_verified=admission.counters["admission.sig_scalar_verified"] - scalar0,
              app_hash=entry.app.last_app_hash.hex(), peak_mib_above_base=peak_mib - base_mib,
              base_mib=base_mib, phase_s=time.perf_counter() - t_phase)
-        return counts
+        light = light_plane(dev, {"tally": tally, "gossip": gossip, "svcs": svcs, "nodes": nodes, "urls": urls,
+                                  "entry_i": entry_i, "privs": privs, "gen": gen, "rotation": rotation, "hk": hk, "home": home})
+        return counts, light
     finally:
         gossip.remove()
         tally.remove()
@@ -2593,6 +2670,479 @@ def network_plane(dev: torch.device, honest_raws: list[bytes]) -> dict:
                 with contextlib.suppress(Exception):  # the victim's first App is closed already
                     n.app.close()
         shutil.rmtree(home, ignore_errors=True)
+
+
+LIGHT_DASERS = 4
+LIGHT_PFBS = 8
+LIGHT_BLOB_BYTES = 2_000
+LIGHT_ZERO = ("http.500", "light.malformed_fraud_proofs", "daser.befp_failed", "daser.pack_chunk_rejected",
+              "follower.verify_failures", "reactor.prewarm_errors", "packs.build_errors", "blobpacks.build_errors",
+              "consensus.propose_errors", "edscache.warm_errors", "txclient.sim_fallback")
+
+
+def counts_since(before: dict) -> dict:
+    now = read_counts()
+    return {name: now[name] - before[name] for name in now}
+
+
+def tally_since(tally: LaunchTally, before: dict) -> dict:
+    """{"who/what": launches} of the tally since `before`."""
+    out = {}
+    with tally.lock:
+        now = {key: dict(v) for key, v in tally.counts.items()}
+    for key, row in now.items():
+        was = before.get(key, {})
+        diff = {name: row[name] - was.get(name, 0) for name in row if row[name] != was.get(name, 0)}
+        if diff:
+            out[f"{key[0]}/{key[1]}"] = diff
+    return out
+
+
+def light_trust(gen: dict) -> light_mod.TrustedState:
+    """The genesis trust of a light node: the validators and powers of
+    `gen` (pubkeys in genesis)."""
+    return light_mod.TrustedState(
+        height=0, header_hash=b"",
+        validators={bytes.fromhex(v["operator"]): bytes.fromhex(v["pubkey"]) for v in gen["validators"]},
+        powers={bytes.fromhex(v["operator"]): int(v["power"]) for v in gen["validators"]})
+
+
+def window_draws(seed: int, widths: dict, cfg) -> dict:
+    """The cells a fresh DASer seeded `seed` draws per height when its
+    sweep runs as a continuation (job i on rng lane i % lanes): the
+    pending heights in jobs of cfg.job_size, each job's heights drawn in
+    order from its lane."""
+    heights = sorted(widths)
+    jobs = [heights[i:i + cfg.job_size] for i in range(0, len(heights), cfg.job_size)]
+    lanes = np.random.default_rng(seed).spawn(min(cfg.workers, len(heights)))
+    out = {}
+    for j, job in enumerate(jobs):
+        rng = lanes[j % len(lanes)]
+        for h in job:
+            w = widths[h]
+            out[h] = {(int(rng.integers(0, w)), int(rng.integers(0, w))) for _ in range(cfg.samples_per_header)}
+    return out
+
+
+def hitting_seed(widths: dict, height: int, withheld: set, cfg, start: int) -> int:
+    """The first seed from `start` whose draws at `height` hit `withheld`."""
+    for seed in range(start, start + 20_000):
+        if window_draws(seed, widths, cfg)[height] & withheld:
+            return seed
+    raise RuntimeError(f"no DASer seed in [{start}, {start + 20_000}) hits the withheld cells of {height}")
+
+
+def sweep(d) -> dict:
+    """One sweep of `d` as a continuation (deterministic rng lanes)."""
+    cont = d.begin_sweep()
+    while cont.step():
+        pass
+    return cont.summary
+
+
+def repair_timer_s() -> float:
+    """Seconds in the DASers' repairs so far (the `daser.repair` timer)."""
+    return telemetry.snapshot()["timers"].get("daser.repair", {}).get("total_s", 0.0)
+
+
+def counter(name: str) -> int:
+    return telemetry.snapshot()["counters"].get(name, 0)
+
+
+def escalation_split(d, height: int, repair_s: float) -> dict:
+    """The split of `d`'s escalation of `height`, read off its own trace
+    table: the cell fetches (its `das.fetch_cells` spans, by axis: the
+    whole-square batches are "row", a BEFP's orthogonal proofs "col"),
+    the repair (`repair_s`, the `daser.repair` timer; its `da.repair.*`
+    spans), and the rest of the height's `das.sample_height` span, which
+    is the host verify of the fetched cells, the square's assembly and
+    the draws before the escalation."""
+    spans = [r for r in d.traces.read("spans", limit=telemetry.TraceTables.MAX_ROWS) if r.get("height") == height
+             or r["name"].startswith("da.repair.")]
+    fetch = {}
+    for r in spans:
+        if r["name"] == "das.fetch_cells":
+            row = fetch.setdefault(r["axis"], {"requests": 0, "cells": 0, "s": 0.0})
+            row["requests"] += 1
+            row["cells"] += r["cells"]
+            row["s"] += r["dur_ms"] / 1e3
+    height_s = sum(r["dur_ms"] for r in spans if r["name"] == "das.sample_height") / 1e3
+    fetch_s = sum(row["s"] for row in fetch.values())
+    return {"sample_height_s": height_s, "fetch": fetch, "repair_s": repair_s,
+            "repair_spans_s": {name: sum(r["dur_ms"] for r in spans if r["name"] == name) / 1e3
+                               for name in ("da.repair.sweep", "da.repair.verify_roots")},
+            "verify_and_rest_s": height_s - fetch_s - repair_s}
+
+def blobs_of(block, ns: bytes) -> list[bytes]:
+    """The blobs of `block`'s PFBs in namespace `ns`, sorted."""
+    return sorted(b.data for raw in block.txs for btx in [blob.try_unmarshal_blob_tx(raw)]
+                  if btx is not None for b in btx.blobs if b.namespace.raw == ns)
+
+
+def light_plane(dev: torch.device, ctx: dict) -> dict:
+    """The light side of the network on the network plane's live chain:
+    a port NodeService beside the entry validator's ValidatorService (as
+    `validator-serve --http` puts one), four DASers on the card sampling
+    every height over HTTP, a withheld but repairable k = 128 height
+    recovered on the card, a certified k = 128 non-codeword halted by a
+    BEFP verified on the card, two blob followers, 8 PFBs written through
+    TxClient over HttpNodeClient and committed by the reactors, and the DA
+    shim. Returns the launch counts of the phase."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    tally, svcs, nodes, urls = ctx["tally"], ctx["svcs"], ctx["nodes"], ctx["urls"]
+    entry_i, privs, gen, hk, rotation = ctx["entry_i"], ctx["privs"], ctx["gen"], ctx["hk"], ctx["rotation"]
+    entry = nodes[entry_i]
+    home = os.path.join(ctx["home"], "light")
+    counters0 = telemetry.snapshot()["counters"]
+    reset_counts()
+    tally0 = {key: dict(v) for key, v in tally.counts.items()}
+    wire, undo, gates, node_svc = ctx["gossip"], [], [None] * len(svcs), None
+    steps: dict = {}
+
+    spent = {"repair": 0.0, "befp": 0.0, "shim": 0.0}  # seconds inside each tagged function (the BEFP's read)
+
+    def tagged(owner, name: str, what: str) -> None:
+        orig = getattr(owner, name)
+
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                with tally.tag(what=what):
+                    return orig(*a, **kw)
+            finally:
+                spent[what] += time.perf_counter() - t0
+
+        setattr(owner, name, run)
+        undo.append((owner, name, orig))
+
+    tagged(repair, "repair_eds", "repair")
+    tagged(fraud, "verify_befp", "befp")
+    tagged(da_service.DACore, "_pipeline", "shim")
+    # TxClient's transport speaks http.client, not urllib: meter its JSON bodies here
+    orig_request = tx_client.HttpNodeClient._request
+
+    def metered(client, method, path, payload=None):
+        out = orig_request(client, method, path, payload)
+        wire.add(path, len(json.dumps(payload)) if payload is not None else 0, len(json.dumps(out)))
+        return out
+
+    tx_client.HttpNodeClient._request = metered
+    undo.append((tx_client.HttpNodeClient, "_request", orig_request))
+
+    def begin() -> tuple:
+        torch.cuda.synchronize()
+        return time.perf_counter(), read_counts(), wire.snapshot(), {k: dict(v) for k, v in tally.counts.items()}
+
+    def end(name: str, mark: tuple, **extra) -> dict:
+        torch.cuda.synchronize()
+        t0, c0, w0, k0 = mark
+        rec = {"s": time.perf_counter() - t0, "launches": counts_since(c0), "by_source": tally_since(tally, k0),
+               "wire": wire.since(w0), **extra}
+        steps[name] = rec
+        return rec
+
+    def new_daser(name: str, store: str, seed: int | None = None, **kw):
+        return daser_mod.DASer([url], light_mod.LightClient(CONSENSUS_CHAIN, light_trust(gen)),
+                               checkpoint_mod.CheckpointStore(os.path.join(home, store, "checkpoint.json")),
+                               rng=np.random.default_rng(seed), name=name, device=dev, **kw)
+
+    def new_follower(name: str, ns: bytes):
+        return follower_mod.BlobFollower([url], ns, light_mod.LightClient(CONSENSUS_CHAIN, light_trust(gen)),
+                                         checkpoint_mod.CheckpointStore(os.path.join(home, name, "follower.json")),
+                                         name=name)
+
+    try:
+        node_svc = node_server.NodeService(entry, port=0)
+        node_svc.lock = svcs[entry_i].lock  # one writer lock for the process, as validator-serve --http shares it
+        node_svc.das_core.app_lock = svcs[entry_i].lock
+        node_svc.serve_background()
+        url = f"http://127.0.0.1:{node_svc.port}"
+        for i, s in enumerate(svcs):
+            gates[i] = network_reactor(tally, s, [u for j, u in enumerate(urls) if j != i])
+        tip = entry.app.height
+        blk_k = entry.app.db.load_block(hk)
+        k = blk_k.header.square_size
+        two_k = 2 * k
+
+        # 1. the DA shim: the k = 128 ODS through /da/extend_commit, twice, and a PFB's share range
+        _, sq = query.rebuild_square(entry.app, hk)
+        ods_b64 = base64.b64encode(b"".join(sq.share_bytes())).decode()
+        for run in ("cold", "warm"):
+            mark = begin()
+            out = transport.request_json(url, "/da/extend_commit", {"ods": ods_b64}, timeout=120)
+            rec = end(f"shim_{run}", mark)
+            require(out["data_root"] == blk_k.header.data_hash.hex() and out["square_size"] == k,
+                    f"/da/extend_commit ({run}) is not the committed data root")
+        require(steps["shim_cold"]["launches"] == entry_launches(k, 0),
+                f"/da/extend_commit cold launches {steps['shim_cold']['launches']} != {entry_launches(k, 0)}")
+        require(steps["shim_warm"]["launches"] == {"sha256_compress": 0, "rs_extend_lines": 0},
+                f"/da/extend_commit warm launched {steps['shim_warm']['launches']}")
+        start, stop = proof.blob_share_range(sq, 0, 0)
+        mark = begin()
+        doc = transport.request_json(url, "/da/prove_shares", {"data_root": out["data_root"], "start": start,
+                                                               "end": stop}, timeout=60)
+        end("shim_prove", mark, shares=stop - start)
+        require(query.share_proof_from_json(doc["proof"]).verify(blk_k.header.data_hash),
+                "/da/prove_shares does not verify against the data root")
+
+        # 2. the sampling fleet: every height, then a restart that samples nothing
+        conf = sampling.withholding_catch_confidence(daser_mod.DASerConfig().samples_per_header)
+        fleet = [new_daser(f"light{i}", f"light{i}", SEED + 200 + i) for i in range(LIGHT_DASERS)]
+        mark = begin()
+        sweeps = []
+        for d in fleet:
+            t0 = time.perf_counter()
+            got = d.sync()
+            sweeps.append(time.perf_counter() - t0)
+            require(got["halted"] is None and got["sampled"] == list(range(1, tip + 1)), f"{d.name}: {got}")
+            bad = {h: r for h, r in d.reports.items() if r["status"] != "sampled" or r["confidence"] != conf}
+            require(not bad, f"{d.name} reports {bad}")
+        rec = end("sampling", mark, heights=tip, sweep_s=sweeps)
+        require(rec["launches"] == {"sha256_compress": 0, "rs_extend_lines": 0},
+                f"sampling launched on the card: {rec['by_source']}")
+        served = {h: node_svc.das_core.availability(h) for h in range(1, tip + 1)}
+        mark = begin()
+        again = new_daser("light0-restarted", "light0")
+        got = again.sync()
+        end("sampling_restart", mark)
+        require(got["sampled"] == [] and got["sample_from"] == tip + 1, f"the restarted DASer sampled {got}")
+        require({h: node_svc.das_core.availability(h) for h in served} == served,
+                "the restarted DASer moved the serving records")
+
+        # 3. followers: a PFB namespace of the k = 128 height, and an absent one
+        present = sorted({b.namespace.raw for raw in blk_k.txs for btx in [blob.try_unmarshal_blob_tx(raw)]
+                          if btx is not None for b in btx.blobs})
+        ns_follow = present[0]
+        absent = next(ns[:-1] + bytes([ns[-1] + 1]) for ns in present
+                      if ns[-1] < 255 and ns[:-1] + bytes([ns[-1] + 1]) not in present)
+        want = {h: got_h for h in range(1, tip + 1) if (got_h := blobs_of(entry.app.db.load_block(h), ns_follow))}
+        fol, fol_absent = new_follower("follower", ns_follow), new_follower("follower-absent", absent)
+        tel = telemetry.snapshot()["counters"]
+        mark = begin()
+        got = fol.sync()
+        got_absent = fol_absent.sync()
+        rec = end("following", mark)
+        # blobs_from_shares (as the reference's) turns each namespace
+        # padding share of the run into an empty payload: compare the others
+        popped = fol.pop_blobs()
+        delivered = {h: sorted(p for p in v if p) for h, v in popped.items()}
+        padding = sum(1 for v in popped.values() for p in v if not p)
+        require(got == {"head": tip, "next_height": tip + 1, "verified": tip} and delivered == want,
+                f"the follower read {got}; blobs at {sorted(delivered)} vs {sorted(want)}")
+        require(got_absent["verified"] == tip and fol_absent.pop_blobs() == {}, f"absent namespace: {got_absent}")
+        moved = {name: telemetry.snapshot()["counters"].get(name, 0) - tel.get(name, 0)
+                 for name in ("follower.pack_reads", "follower.live_reads", "follower.absences")}
+        require(moved["follower.absences"] >= tip, f"verified absences {moved}")
+        require(rec["launches"] == {"sha256_compress": 0, "rs_extend_lines": 0},
+                f"following launched on the card: {rec['by_source']}")
+        steps["following"].update(reads=moved, blobs_at_k128=len(want.get(hk, [])), padding_payloads=padding)
+        tel = telemetry.snapshot()["counters"]
+        mark = begin()
+        restarted = new_follower("follower", ns_follow)
+        restarted.catch_up_roots()
+        got = restarted.sync()
+        end("following_restart", mark)
+        require(got["verified"] == 0 and restarted.next_height == tip + 1
+                and telemetry.snapshot()["counters"].get("follower.heights", 0) == tel.get("follower.heights", 0),
+                f"the restarted follower re-read {got}")
+
+        # 4. a withheld but repairable k = 128 height: a quarter of the rows withheld. Packs serve every
+        # cell (a withholder publishes none), so this DASer reads live cells only and its repair rebuilds
+        # the withheld rows on the card
+        cfg = daser_mod.DASerConfig(prefer_packs=False)
+        withheld = {(r, c) for r in range(k // 2) for c in range(two_k)}
+        node_svc.das_core.withhold(hk, withheld)
+        widths = {h: 2 * entry.app.db.load_block(h).header.square_size for h in range(1, tip + 1)}
+        seed = hitting_seed(widths, hk, withheld, cfg, SEED + 300)
+        catcher = new_daser("light-withheld", "light-withheld", seed, cfg=cfg)
+        repair0, pack0 = repair_timer_s(), counter("daser.pack_samples")
+        mark = begin()
+        got = sweep(catcher)
+        rec = end("withheld", mark, packs=counter("daser.pack_samples") - pack0)
+        rep = catcher.reports[hk]
+        require(got["halted"] is None and rep["status"] == "recovered", f"the withheld height: {rep}")
+        split = escalation_split(catcher, hk, repair_timer_s() - repair0)
+        require(split["fetch"].get("row", {}).get("cells", 0) >= two_k * two_k and not rec["packs"],
+                f"the withheld escalation fetched {split['fetch']} live and {rec['packs']} pack cells")
+        present = np.ones((two_k, two_k), dtype=bool)
+        present[: k // 2] = False
+        repair_launches = rec["by_source"].get("None/repair", {})
+        want_repair = sweep_launches(present)
+        require(repair_launches == want_repair, f"the withheld repair launched {rec['by_source']}, want {want_repair}")
+        rec.update(seed=seed, withheld_cells=len(withheld), failed_samples=len(rep["failed"]), split=split)
+
+        # 5. writes over HTTP: 8 PFBs through TxClient, committed by the reactors at the entry's next slot
+        h = tip
+        empties = []
+        while rotation[(h + 1) % len(rotation)] != entry.address:
+            h += 1
+            empties.append(run_height(gates, h))
+        rng = np.random.default_rng(SEED + 400)
+        datas = [rng.integers(0, 256, LIGHT_BLOB_BYTES, dtype=np.uint8).tobytes() for _ in range(LIGHT_PFBS)]
+        confirms: list = [None] * LIGHT_PFBS
+        errors: list = []
+
+        def submit(i: int) -> None:
+            try:
+                priv = crypto.PrivateKey.from_seed(b"chip-smoke-account-%d" % i)
+                a = priv.public_key().address()
+                acc = transport.request_json(url, "/abci_query", {"path": "auth/account",
+                                                                  "data": {"address": a.hex()}})["account"]
+                signer = tx_client.Signer(CONSENSUS_CHAIN)
+                signer.add_account(priv, number=acc["number"], sequence=acc["sequence"])
+                remote = tx_client.HttpNodeClient(url)
+                try:
+                    confirms[i] = tx_client.TxClient(remote, signer).submit_pay_for_blob(
+                        a, [blob.Blob(namespace.Namespace(ns_follow), datas[i])])
+                finally:
+                    remote.close()
+            except Exception as e:  # reported below; the phase fails on it
+                errors.append(f"PFB {i}: {type(e).__name__}: {e}")
+
+        simulated = []  # the codes of the entry's simulations: each PFB's gas comes from one
+        orig_simulate = entry.app.simulate_tx
+
+        def simulate(raw):
+            res = orig_simulate(raw)
+            simulated.append(res.code)
+            return res
+
+        entry.app.simulate_tx = simulate
+        undo.append((entry.app, "simulate_tx", orig_simulate))
+        mark = begin()
+        writers = [threading.Thread(target=submit, args=(i,)) for i in range(LIGHT_PFBS)]
+        for th in writers:
+            th.start()
+        deadline = time.monotonic() + NETWORK_WAIT_S
+        while len(entry.pool) < LIGHT_PFBS and not errors:
+            require(time.monotonic() < deadline, f"the entry validator's pool holds {len(entry.pool)} PFBs")
+            time.sleep(0.01)
+        t_admitted = time.perf_counter() - mark[0]
+        hw = h + 1
+        height_s = run_height(gates, hw)
+        for th in writers:
+            th.join(NETWORK_WAIT_S)
+        rec = end("writes", mark, admitted_s=t_admitted, height_s=height_s, empty_heights_s=empties, height=hw)
+        require(not errors, f"TxClient: {errors}")
+        require(simulated == [0] * LIGHT_PFBS and rec["wire"].get("/simulate_tx", [0])[0] == LIGHT_PFBS,
+                f"gas estimation: simulations {simulated}, /simulate_tx {rec['wire'].get('/simulate_tx')}")
+        require(all(c is not None and c.get("found") and c.get("height") == hw for c in confirms),
+                f"the PFBs were not confirmed at height {hw}: {confirms} (pool {len(entry.pool)}, "
+                f"{len(entry.app.db.load_block(hw).txs)} txs at {hw} by {entry.app.db.load_block(hw).header.proposer.hex()[:8]}, "
+                f"entry {entry.address.hex()[:8]}, {time.perf_counter() - mark[0]:.1f} s)")
+        blk_w = entry.app.db.load_block(hw)
+        require(blobs_of(blk_w, ns_follow) == sorted(datas), "the committed height does not carry the 8 blobs")
+        rounds = {(s.reactor.commit_at(hw) or {}).get("cert", {}).get("round") for s in svcs}
+        require(rounds == {0}, f"height {hw} committed in rounds {rounds}")
+        rec.update(k=blk_w.header.square_size, tx_bytes=sum(len(raw) for raw in blk_w.txs))
+        for n in nodes:
+            n.app.da_warmer.wait_idle()
+        mark = begin()
+        got = fol.sync()
+        popped = fol.pop_blobs()
+        delivered = {h: [p for p in v if p] for h, v in popped.items()}
+        for d in fleet:
+            caught = d.sync()
+            require(caught["halted"] is None and caught["sample_from"] == hw + 1, f"{d.name} after the writes: {caught}")
+        rec = end("read_back", mark, padding_payloads=sum(1 for v in popped.values() for p in v if not p))
+        require(got["next_height"] == hw + 1 and sorted(delivered.get(hw, [])) == sorted(datas)
+                and set(delivered) == {hw}, f"the follower read back {got}, blobs at {sorted(delivered)}")
+        require(rec["launches"] == {"sha256_compress": 0, "rs_extend_lines": 0},
+                f"reading back launched on the card: {rec['by_source']}")
+
+        # 6. fraud: a certified k = 128 non-codeword past the tip, half its bad row withheld
+        tip2 = entry.app.height
+        bad_h = tip2 + 1
+        bad_row = int(np.random.default_rng(SEED + 500).integers(0, two_k))
+        corrupt = entry.app.eds_cache.lookup_root(blk_k.header.data_hash).eds.squares.copy()
+        corrupt[bad_row, two_k - 1] ^= 0x5A
+        mark = begin()
+        with tally.tag(what="fixture"):
+            rows_bad = nmt.eds_axis_roots(corrupt, list(range(two_k)), k)
+            cols_bad = nmt.eds_axis_roots(np.swapaxes(corrupt, 0, 1), list(range(two_k)), k)
+        end("fraud_fixture", mark)
+        d_bad = dah.DataAvailabilityHeader(row_roots=tuple(r.tobytes() for r in rows_bad),
+                                           col_roots=tuple(c.tobytes() for c in cols_bad))
+        node_svc.das_core.seed_entry(bad_h, dah.ExtendedDataSquare(corrupt), d_bad)
+        withheld_bad = {(bad_row, j) for j in range(k)}
+        node_svc.das_core.withhold(bad_h, withheld_bad)
+        header = block_mod.Header(
+            chain_id=CONSENSUS_CHAIN, height=bad_h, time_unix=entry.app.db.load_block(tip2).header.time_unix + 1,
+            data_hash=d_bad.hash(), square_size=k, app_hash=b"\x77" * 32, proposer=entry.address,
+            app_version=entry.app.app_version, last_block_hash=entry.app.last_block_hash,
+            validators_hash=block_mod.validators_hash_of([(p.public_key().address(), 10) for p in privs]))
+        votes = tuple(consensus.Vote(bad_h, header.hash(), p.public_key().address(),
+                                     p.sign(consensus.Vote.sign_bytes(CONSENSUS_CHAIN, bad_h, header.hash(),
+                                                                      "precommit", 0)), "precommit", 0)
+                      for p in privs)
+        cert = consensus.CommitCertificate(bad_h, header.hash(), votes, 0)
+        peers = daser_mod.PeerSet([url])
+        base_source = daser_mod.http_header_source(peers)
+        os.makedirs(os.path.join(home, "hunter"), exist_ok=True)
+        shutil.copy(fleet[0].store.path, os.path.join(home, "hunter", "checkpoint.json"))
+        seed = hitting_seed({bad_h: two_k}, bad_h, withheld_bad, cfg, SEED + 600)
+        hunter = new_daser("light-hunter", "hunter", seed,
+                           header_source=lambda x: (header, cert) if x == bad_h else base_source(x))
+        repair0, befp0 = repair_timer_s(), spent["befp"]
+        mark = begin()
+        got = hunter.sync()
+        rec = end("fraud", mark, seed=seed)
+        rep = hunter.reports.get(bad_h, {})
+        require(got["halted"] == {"height": bad_h, "reason": "bad-encoding", "data_root": d_bad.hash().hex()}
+                and rep.get("status") == "fraud" and (rep.get("axis"), rep.get("index")) == ("row", bad_row),
+                f"the hunter: {got} {rep}")
+        require(hunter.light.condemned_roots == {d_bad.hash()}, "the BEFP did not condemn the root")
+        befp_launches = rec["by_source"].get("None/befp", {})
+        want_befp = {"sha256_compress": 1 + int(math.log2(two_k)), "rs_extend_lines": 2}
+        require(befp_launches == want_befp, f"the BEFP check launched {rec['by_source']}, want {want_befp}")
+        rec.update(split=escalation_split(hunter, bad_h, repair_timer_s() - repair0), befp_s=spent["befp"] - befp0,
+                   failed_samples=len(rep.get("failed", [])))
+        reborn = new_daser("light-hunter-reborn", "hunter")
+        require(reborn.halted and reborn.sync() == {"halted": got["halted"]}, "the reborn hunter followed on")
+        for d in fleet[1:]:
+            require(not d.sync()["halted"], f"{d.name} halted")
+
+        for g in gates:
+            g.reactor.stop()
+        for n in nodes:
+            n.app.da_warmer.wait_idle()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        by_source = tally_since(tally, tally0)
+        require("None/None" not in by_source, f"launches of no known source: {by_source}")
+        total = {name: sum(v.get(name, 0) for v in by_source.values()) for name in LaunchTally.KERNELS}
+        require(total == counts, f"the tally {total} is not the wrappers' count {counts}")
+        for g in gates:
+            require(g.reactor.loop_errors == 0, f"{g.reactor.vnode.name}: reactor loop errors")
+        for n in nodes:
+            require(n.app.last_reject is None, f"{n.name}: ProcessProposal rejected: {n.app.last_reject}")
+        tel = telemetry.snapshot()["counters"]
+        moved = {name: tel.get(name, 0) - counters0.get(name, 0) for name in LIGHT_ZERO
+                 if tel.get(name, 0) != counters0.get(name, 0)}
+        rejects = {key: v - counters0.get(key, 0) for key, v in tel.items()
+                   if key.startswith("process_proposal.rejects") and v != counters0.get(key, 0)}
+        require(not moved and not rejects, f"counters moved: {moved} {rejects}")
+        dasers = {name: tel.get(name, 0) - counters0.get(name, 0) for name in (
+            "daser.requests", "daser.sampling_round_trips", "daser.pack_samples", "daser.escalations",
+            "daser.recovered", "daser.befp_verified", "daser.halts", "daser.headers_sampled",
+            "follower.heights", "follower.blobs", "follower.pack_reads", "follower.live_reads",
+            "das.square_builds", "das.pack_hits", "das.live_assembled", "txclient.reconnects")}
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        emit("light_plane", node_service=url, entry=entry.name, tip=tip, k128_height=hk, steps=steps,
+             counters=dasers, launches=counts, by_source=by_source, peak_mib_above_base=peak_mib - base_mib,
+             base_mib=base_mib, phase_s=time.perf_counter() - t_phase)
+        return counts
+    finally:
+        for owner, name, orig in reversed(undo):
+            setattr(owner, name, orig)
+        for g in gates:
+            if g is not None:
+                g.reactor.stop()
+        if node_svc is not None:
+            node_svc.shutdown()
 
 
 def cmt_host_layers(ods: np.ndarray) -> tuple[list[np.ndarray], list[np.ndarray], bytes]:
@@ -3360,7 +3910,7 @@ def main() -> int:
     by_path["admission_plane"] = adm["admission"]
     by_path.update(node_plane(dev, adm["honest_raws"]))
     by_path["consensus_plane"] = consensus_plane(dev, adm["honest_raws"])
-    by_path["network_plane"] = network_plane(dev, adm["honest_raws"])
+    by_path["network_plane"], by_path["light_plane"] = network_plane(dev, adm["honest_raws"])
     codec_counts = codec_plane(dev, main)
     by_path["codec_plane"] = {name: sum(c[name] for c in codec_counts.values())
                               for name in ("sha256_compress", "rs_extend_lines")}

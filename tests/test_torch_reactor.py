@@ -168,7 +168,9 @@ def test_port_mesh_commits_identically_and_rotates(make_net):
     net.kill(2)
     alive = [0, 1, 3]
     base = max(net.nodes[i].app.height for i in alive)
-    net.wait_heights(base + 3, nodes=alive, timeout=90.0)
+    # four heights hold every proposer slot of the rotation, the dead
+    # validator's included (three miss it whenever its slot comes fourth)
+    net.wait_heights(base + 4, nodes=alive, timeout=90.0)
     net.assert_no_divergence(nodes=alive)
     assert tel.snapshot()["counters"].get("reactor.round_failures", 0) > failures
 

@@ -432,8 +432,11 @@ class App:
         # can invalidate without re-reading disk
         self.state_generation = 0
         # why the last ProcessProposal rejected ("<type>: <message>"), or
-        # None after an accept
+        # None after an accept; last_reject_error is the exception itself,
+        # so that a caller can tell a kernel wrapper's error
+        # (cuda_build.KernelError) from a verdict on the block
         self.last_reject: str | None = None
+        self.last_reject_error: Exception | None = None
 
     # ------------------------------------------------------------------
     # pipeline selection
@@ -792,12 +795,14 @@ class App:
                     # a reject must say why: a failed kernel launch on a
                     # follower would otherwise read as a Byzantine block
                     self.last_reject = f"{type(e).__name__}: {e}"
+                    self.last_reject_error = e
                     sp.set(reject=self.last_reject)
                     telemetry.incr("process_proposal.rejects", labels={
                         "type": type(e).__name__, "reason": reject_reason(e)})
                     raise
             telemetry.incr("process_proposal.accepted")
             self.last_reject = None
+            self.last_reject_error = None
             return True
         except Exception:
             telemetry.incr("process_proposal.rejected")

@@ -71,6 +71,7 @@ from __future__ import annotations
 import collections
 import threading
 
+from celestia_app_tpu_torch import cuda_build
 from celestia_app_tpu_torch.da import codec as codec_mod
 from celestia_app_tpu_torch.da import edscache as edscache_mod
 from celestia_app_tpu_torch.da.dah import DataAvailabilityHeader, ExtendedDataSquare
@@ -222,6 +223,8 @@ class SampleCore:
             with guard:
                 _block, _square, cache_entry = \
                     build_prover_entry(self.app, height)
+        except cuda_build.KernelError:
+            raise  # a kernel wrapper's ValueError is no unservable height
         except (QueryError, FileNotFoundError, KeyError, ValueError) as e:
             raise SampleError(f"no servable square at height {height}: {e}") \
                 from None
@@ -518,6 +521,8 @@ class SampleCore:
                 docs.append(self.header(int(h)))
             except SampleError as e:
                 docs.append({"height": int(h), "error": str(e)})
+            except cuda_build.KernelError:
+                raise
             except (TypeError, ValueError):
                 raise SampleError(
                     "each height must be an integer") from None

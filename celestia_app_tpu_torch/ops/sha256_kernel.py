@@ -22,8 +22,23 @@ from celestia_app_tpu_torch.ops.sha256_consts import H0_WORDS, K_WORDS
 _M32 = 0xFFFFFFFF
 
 
-def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
-    return ((x >> n) | (x << (32 - n))) & _M32
+def _doubled(x: torch.Tensor) -> torch.Tensor:
+    """x | x << 32 for x in [0, 2^32): bits n..n+31 of the result, for any
+    n < 32, are x rotated right by n. The top bits are no word's, so every
+    sum of rotations is masked before it is used."""
+    return x | (x << 32)
+
+
+def _sigma(x: torch.Tensor, r1: int, r2: int, s: int) -> torch.Tensor:
+    """The message schedule's sigma: rotr(x, r1) ^ rotr(x, r2) ^ (x >> s)."""
+    x2 = _doubled(x)
+    return ((x2 >> r1) ^ (x2 >> r2) ^ (x >> s)) & _M32
+
+
+def _big_sigma(x: torch.Tensor, r1: int, r2: int, r3: int) -> torch.Tensor:
+    """The round's Sigma: rotr(x, r1) ^ rotr(x, r2) ^ rotr(x, r3)."""
+    x2 = _doubled(x)
+    return ((x2 >> r1) ^ (x2 >> r2) ^ (x2 >> r3)) & _M32
 
 
 def _to_int32(x: torch.Tensor) -> torch.Tensor:
@@ -33,7 +48,8 @@ def _to_int32(x: torch.Tensor) -> torch.Tensor:
 
 def compress_words_ref(blocks: torch.Tensor) -> torch.Tensor:
     """Plain version: (nblocks, 16, N) int32 big-endian words -> (8, N)
-    int32 state (FIPS 180-4 compression of every block in turn from H0)."""
+    int32 state (FIPS 180-4 compression of every block in turn from H0).
+    Words are int64 in [0, 2^32); a sum is masked where a shift reads it."""
     nblocks, _, n = blocks.shape
     words = blocks.to(torch.int64) & _M32
     state = [torch.full((n,), h, dtype=torch.int64, device=blocks.device) for h in H0_WORDS]
@@ -42,16 +58,13 @@ def compress_words_ref(blocks: torch.Tensor) -> torch.Tensor:
         a, b, c, d, e, f, g, h = state
         for i in range(64):
             if i >= 16:
-                w15, w2 = w[(i - 15) % 16], w[(i - 2) % 16]
-                s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
-                s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
+                s0 = _sigma(w[(i - 15) % 16], 7, 18, 3)
+                s1 = _sigma(w[(i - 2) % 16], 17, 19, 10)
                 w[i % 16] = (w[i % 16] + s0 + w[(i - 7) % 16] + s1) & _M32
-            big_s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-            ch = (e & f) ^ ((e ^ _M32) & g)
-            t1 = (h + big_s1 + ch + K_WORDS[i] + w[i % 16]) & _M32
-            big_s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-            maj = (a & b) ^ (a & c) ^ (b & c)
-            t2 = big_s0 + maj
+            ch = g ^ (e & (f ^ g))
+            t1 = h + _big_sigma(e, 6, 11, 25) + ch + (w[i % 16] + K_WORDS[i])
+            maj = (a & b) | (c & (a | b))
+            t2 = _big_sigma(a, 2, 13, 22) + maj
             h, g, f, e, d, c, b, a = g, f, e, (d + t1) & _M32, c, b, a, (t1 + t2) & _M32
         state = [(s + v) & _M32 for s, v in zip(state, (a, b, c, d, e, f, g, h))]
     return _to_int32(torch.stack(state))

@@ -173,7 +173,36 @@ final line is never printed):
    `light_plane` line (per step: host time, launches by source, requests
    and bytes per route; the escalations' fetch, host-verify and repair
    split from the DASers' own spans and repair timer; peak memory);
-11. the two other codecs on the same ODS, on cuda, for cmt-ldpc and
+11. the scenario plane (`scenario_plane`), the reference's scenario matrix
+   (bench.py --scenario) through sim.run_scenario on cuda, seed 0, each
+   cell tens of real ValidatorNodes and DASers on one seeded virtual
+   timeline in a temporary directory: honest, withhold-threshold,
+   incorrect-coding and partition-churn under rs2d-nmt, cmt-ldpc and
+   pcmt-polar at 8 validators, 64 light nodes and 5 heights, each held to
+   tests/test_scenarios.py's verdicts (every height committed; no false
+   condemnation; withholding detected with no halt; incorrect coding
+   halted by verified fraud proofs, the BEFPs checked with K1 and K2; the
+   partition cut and healed); long-soak at its own spec (every resource
+   of its soak block churned at least twice, PFB traffic confirmed); the
+   rs2d-nmt honest and incorrect-coding specs again on the CPU in this
+   process, with verdict bytes equal to the card's; honest under one
+   traffic op of txsim's shape (8 lanes of PFBs of 1-3 blobs of 100-250
+   KB) with at least 3 heights at the default square cap k = 64; and
+   fleet-scale (4 validators, 1,000 continuation-driven lights, its
+   heights cut to FLEET_HEIGHTS) twice with byte-identical verdicts. Every
+   launch is attributed to a node, a height and a source (the validators'
+   own squares, provers and commitments; serving; the malicious fixture;
+   the lights' repairs; their fraud-proof checks) and the tally must equal
+   the wrappers' counts; http.500, daser.befp_failed,
+   daser.pack_chunk_rejected, edscache.warm_errors and
+   consensus.propose_errors stay unmoved, and
+   light.malformed_fraud_proofs in honest. One `scenario_cell` line per
+   cell (wall time, the verdict's metrics, launches by source, peak memory
+   above the phase's start, the card's busy share from a torch.profiler
+   trace; per height of the traffic cell its k, launches per validator,
+   host time and PFBs submitted, accepted and confirmed) and one
+   `scenario_plane` line;
+12. the two other codecs on the same ODS, on cuda, for cmt-ldpc and
    pcmt-polar each: compute_entry cold (every code table derived and
    uploaded) and warm, with the K1 launches of the layer plan (4 for CMT,
    29 for PCMT at k = 128), the data root and every layer equal to the
@@ -188,7 +217,7 @@ final line is never printed):
    attributes it; the block cache (a hit makes no launch); and
    rs_tunable's axis encode (64 shares to 128) against its host version;
    one `codec_plane` line;
-12. the scale plane (`scale_plane`): two blocks shaped like the upstream
+13. the scale plane (`scale_plane`): two blocks shaped like the upstream
    e2e big-block manifests (GovMaxSquareSize 512, PFBs of 6 blobs of
    200 KB, seeded), about 8 MB (k = 256) and 64 MB (k = 512), built by
    square.build(max_square_size=512) and run through new_dah_from_ods on
@@ -214,16 +243,16 @@ final line is never printed):
    seeded k = 128 and 4 seeded k = 256 blocks laid out by square.build,
    roots equal to the serial run, with blocks/s, the serial sum, overlap
    stalls and the card's idle share from a torch.profiler trace; at its
-   end the 16-bit operands it cached are freed, so that phase 13's peak
+   end the 16-bit operands it cached are freed, so that phase 14's peak
    memory counts what it did before this phase;
-13. times with CUDA events after warm-up: the block, each kernel at the main
+14. times with CUDA events after warm-up: the block, each kernel at the main
    path's shapes, each plain version, K2's library yardsticks (fp16
    torch.matmul and torch._int_mm of the same product) and the two-launch
    extension; the tensor-core instructions in K2's SASS (cuobjdump); and a
    torch.profiler trace of the block for its device busy time by kernel.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
-summed over the paths driven in phases 4 to 12 and split by path; the last
+summed over the paths driven in phases 4 to 13 and split by path; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits with code 2 before any of this.
 """
@@ -302,6 +331,9 @@ from celestia_app_tpu_torch.das import checkpoint as checkpoint_mod
 from celestia_app_tpu_torch.das import daser as daser_mod
 from celestia_app_tpu_torch.service import da_service, validator_server
 from celestia_app_tpu_torch.service import server as node_server
+from celestia_app_tpu_torch.sim import engine as sim_engine
+from celestia_app_tpu_torch.sim import scenarios
+from celestia_app_tpu_torch.sim import scheduler as sim_scheduler
 from celestia_app_tpu_torch.testing import malicious
 from celestia_app_tpu_torch.utils import fast_host, merkle_host, nmt_host, telemetry
 from celestia_app_tpu_torch.wire import codec as wire_codec
@@ -3145,6 +3177,384 @@ def light_plane(dev: torch.device, ctx: dict) -> dict:
             node_svc.shutdown()
 
 
+# -- phase: the scenario plane (sim/*) on the card -------------------------------
+
+SCENARIO_SEED = 0
+SCENARIO_SCHEMES = ("rs2d-nmt", "cmt-ldpc", "pcmt-polar")  # every registered wire id, as bench.py --scenario
+SCENARIO_MATRIX = ("honest", "withhold-threshold", "incorrect-coding", "partition-churn")  # bench.py:2907-2990
+SCENARIO_TWINS = ("honest", "incorrect-coding")  # rs2d-nmt cells run again on the CPU: equal verdict bytes
+SCENARIO_ZERO = ("http.500", "daser.befp_failed", "daser.pack_chunk_rejected", "edscache.warm_errors",
+                 "consensus.propose_errors")
+# one traffic op of the grammar as it is: txsim's shape at sizes that fill
+# the square to the default gov_max_square_size (k = 64)
+SCENARIO_TRAFFIC = {"op": "traffic", "sequences": 8, "pfbs_per_wave": 1, "blobs_per_pfb": [1, 3],
+                    "blob_sizes": [100_000, 250_000], "every": 0.9}
+TRAFFIC_K = 64
+TRAFFIC_MIN_FULL_HEIGHTS = 3
+FLEET_HEIGHTS = 12  # fleet-scale's 1,000 heights, cut so that its two runs take about 30 s
+
+
+class ScenarioTally:
+    """K1 / K2 launches of the scenario plane by (node, height, source).
+
+    A simulation runs one scheduler event at a time on the calling thread,
+    and a validator waits for its prover warmer inside the event that
+    committed (sim/engine.SimValidator._apply), so one process-wide
+    context, not a thread-local one, names the node and height of every
+    launch, the warmer's included. Each scheduler event sets the node (its
+    label's prefix, or the SimValidator of a bound method) and the height
+    that node works on (a validator's next height, else the chain's); the
+    serving route, the malicious fixture, a light node's escalation and its
+    fraud-proof check set the source. A launch with no source set is the
+    node's own work: a validator's squares, provers and commitments."""
+
+    SOURCES = ("validators", "serving", "fixtures", "repairs", "fraud_proofs")
+
+    def __init__(self):
+        self.ctx = {"who": "setup", "height": 0, "source": None, "event": 0}
+        self.counts: dict = {}  # (who, height, source) -> {kernel: launches}
+        self.sim = None
+        self.by_name: dict = {}
+        self.heights: dict = {}  # height -> what its first commit showed
+        self.waves: dict = {}  # height -> txs an op event submitted to its first validator, and accepted
+        self.events = self.last_wave = 0
+        self.undo: list = []
+
+    def reset(self) -> None:
+        self.counts, self.sim, self.by_name, self.heights, self.waves = {}, None, {}, {}, {}
+
+    def _count(self, kernel: str) -> None:
+        key = (self.ctx["who"], self.ctx["height"], self.ctx["source"] or "validators")
+        self.counts.setdefault(key, dict.fromkeys(LaunchTally.KERNELS, 0))[kernel] += 1
+
+    @contextlib.contextmanager
+    def _set(self, **kw):
+        old = dict(self.ctx)
+        self.ctx.update(kw)
+        try:
+            yield
+        finally:
+            self.ctx = old
+
+    def _height(self, who: str) -> int:
+        v = self.by_name.get(who)
+        if v is not None:
+            return v.vnode.app.height + 1
+        return max(self.sim.commit_times, default=0) + 1 if self.sim is not None else 0
+
+    def _on_commit(self, sim, _val, height: int, block) -> None:
+        self.heights[height] = {
+            "k": block.header.square_size, "t": time.perf_counter(), "txs": len(block.txs),
+            "pfbs": sum(1 for raw in block.txs if blob.try_unmarshal_blob_tx(raw) is not None)}
+
+    def _patch(self, owner, name: str, make) -> None:
+        orig = getattr(owner, name)
+        setattr(owner, name, make(orig))
+        self.undo.append((owner, name, orig))
+
+    def install(self) -> None:
+        tally = self
+
+        def kernel(name, tensor_of):
+            def make(orig):
+                return TalliedKernel(orig, lambda *a, **kw: tally._count(name)
+                                     if LaunchTally.on_card(tensor_of(*a, **kw)) else None)
+            return make
+
+        def sourced(source):
+            def make(orig):
+                def run(*a, **kw):
+                    with tally._set(source=source):
+                        return orig(*a, **kw)
+                return run
+            return make
+
+        def call_at(orig):
+            def schedule(sched, t, fn, label=""):
+                who = label.split(".", 1)[0] if label else getattr(getattr(fn, "__self__", None), "name", "")
+
+                def event():
+                    tally.events += 1
+                    with tally._set(who=who, height=tally._height(who), source=None, event=tally.events):
+                        fn()
+                return orig(sched, t, event, label)
+            return schedule
+
+        def admitted(orig):
+            def run(vnode, *a, **kw):
+                with tally._set(who=vnode.name):
+                    return orig(vnode, *a, **kw)
+            return run
+
+        def wave(orig):
+            # an op event's first batch goes to the validator whose
+            # verdicts the traffic lanes follow (sim/scenarios.py)
+            def run(vnode, raws, *a, **kw):
+                out = admitted(orig)(vnode, raws, *a, **kw)
+                if tally.ctx["who"] == "op" and tally.ctx["event"] != tally.last_wave:
+                    tally.last_wave = tally.ctx["event"]
+                    row = tally.waves.setdefault(tally.ctx["height"], {"submitted": 0, "accepted": 0})
+                    row["submitted"] += len(raws)
+                    row["accepted"] += sum(1 for r in out if r.code == 0)
+                return out
+            return run
+
+        def attach(orig):
+            def run(sim):
+                tally.sim = sim
+                tally.by_name = {v.name: v for v in sim.validators}
+                sim.commit_listeners.append(tally._on_commit)
+                return orig(sim)
+            return run
+
+        self._patch(sha256_kernel, "compress_words", kernel("sha256_compress", lambda blocks: blocks))
+        self._patch(rs_kernel, "extend_lines", kernel("rs_extend_lines", lambda groups, operand: operand))
+        self._patch(sim_scheduler.Scheduler, "call_at", call_at)
+        self._patch(sim_engine.Simulation, "run", attach)
+        self._patch(sim_engine.SimValidator, "route", sourced("serving"))
+        self._patch(consensus.ValidatorNode, "add_txs", wave)
+        self._patch(consensus.ValidatorNode, "add_tx", admitted)
+        self._patch(malicious, "incorrect_coding_fixture", sourced("fixtures"))
+        self._patch(daser_mod.DASer, "_escalate", sourced("repairs"))
+        self._patch(daser_mod.DASer, "_escalate_codec", sourced("repairs"))
+        self._patch(light_mod.LightClient, "submit_fraud_proof", sourced("fraud_proofs"))
+
+    def remove(self) -> None:
+        while self.undo:
+            owner, name, orig = self.undo.pop()
+            setattr(owner, name, orig)
+
+    def by_source(self) -> dict:
+        out = {s: dict.fromkeys(LaunchTally.KERNELS, 0) for s in self.SOURCES}
+        for (_who, _h, source), row in self.counts.items():
+            for name, n in row.items():
+                out[source][name] += n
+        return out
+
+    def per_validator(self, height: int) -> dict:
+        """{validator: launches} of the work at `height` on each validator."""
+        out = {}
+        for (who, h, source), row in self.counts.items():
+            if h == height and who in self.by_name and source == "validators":
+                cell = out.setdefault(who, dict.fromkeys(LaunchTally.KERNELS, 0))
+                for name, n in row.items():
+                    cell[name] += n
+        return dict(sorted(out.items()))
+
+
+def card_busy(fn):
+    """(fn(), card busy ms, wall ms) of one call under a torch.profiler trace
+    of the card's activity only (kernels, copies, fills); busy is None when
+    the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3
+    return out, (busy or None), wall_ms
+
+
+def scenario_cell(tally: ScenarioTally, doc: dict, dev: torch.device, base_mib: float, profiled: bool = True,
+                  on_card: bool | None = None) -> tuple[dict, dict]:
+    """One run_scenario of `doc` on `dev`: (verdict, row) with the wall
+    time, the verdict's metrics, the launches (by source), the counters
+    that moved, the peak memory above the phase's start and the card's
+    busy share."""
+    counters0 = dict(telemetry.snapshot()["counters"])
+    launches0 = read_counts()
+    tally.reset()
+    on_card = dev.type == "cuda" if on_card is None else on_card
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix=f"chip-smoke-sim-{doc['name']}-") as work:
+        run = lambda: scenarios.run_scenario(dict(doc), workdir=work, device=dev)  # noqa: E731
+        t0 = time.perf_counter()
+        if on_card and profiled:
+            v, busy_ms, wall_ms = card_busy(run)
+        else:
+            v, busy_ms, wall_ms = run(), None, None
+        wall = time.perf_counter() - t0
+    launches = counts_since(launches0)
+    tel = telemetry.snapshot()["counters"]
+    moved = {name: tel.get(name, 0) - counters0.get(name, 0) for name in tel if tel.get(name, 0) != counters0.get(name, 0)}
+    by_source = tally.by_source()
+    if on_card:
+        total = {name: sum(row[name] for row in by_source.values()) for name in LaunchTally.KERNELS}
+        require(total == launches, f"{doc['name']}: the tally {total} is not the wrappers' count {launches}")
+    else:
+        require(launches == {"sha256_compress": 0, "rs_extend_lines": 0}, f"the CPU twin launched {launches}")
+    row = {
+        "scenario": doc["name"], "scheme": doc["scheme"], "device": str(dev), "wall_s": wall,
+        "validators": v["validators"], "light_nodes": v["light_nodes"], "heights": doc["heights"],
+        "heights_committed": v["heights_committed"], "blocks_to_detection": v["blocks_to_detection"],
+        "liveness_gap_s": v["liveness_gap_s"], "recovery_s": v["recovery_s"],
+        "false_condemnation_rate": v["false_condemnation_rate"], "light_halts": v["light_halts"],
+        "unavailable_reports": v["unavailable_reports"], "dropped_msgs": v["dropped_msgs"], "events": v["events"],
+        "launches": launches, "launches_by_source": by_source,
+        "befp_verified": moved.get("daser.befp_verified", 0),
+        "zero_counters_moved": {name: moved[name] for name in SCENARIO_ZERO if name in moved},
+        "malformed_fraud_proofs": moved.get("light.malformed_fraud_proofs", 0),
+        "trace_digest": v["trace_digest"], "peak_rss_bytes": v["peak_rss_bytes"],
+    }
+    if on_card:
+        row.update(peak_mib_above_base=torch.cuda.max_memory_allocated() / 2**20 - base_mib,
+                   card_busy_ms=busy_ms, card_busy_share=None if busy_ms is None else busy_ms / wall_ms)
+    require(not row["zero_counters_moved"], f"{doc['name']}/{doc['scheme']}: counters moved: {row['zero_counters_moved']}")
+    require(v["heights_committed"] == doc["heights"],
+            f"{doc['name']}/{doc['scheme']}: {v['heights_committed']} of {doc['heights']} heights committed")
+    return v, row
+
+
+def check_matrix_verdict(name: str, scheme: str, v: dict, row: dict) -> None:
+    """tests/test_scenarios.py's verdicts of the matrix cell."""
+    what = f"{name}/{scheme}"
+    if name == "honest":
+        require(v["false_condemnation_rate"] == 0 and v["light_halts"] == 0, f"{what}: halts {v['light_halts']}")
+        require(row["malformed_fraud_proofs"] == 0, f"{what}: malformed fraud proofs counted")
+    elif name == "withhold-threshold":
+        require(v["blocks_to_detection"] is not None and v["unavailable_reports"] >= 1,
+                f"{what}: not detected ({v['unavailable_reports']} unavailable reports)")
+        require(v["light_halts"] == 0 and v["false_condemnation_rate"] == 0, f"{what}: withholding condemned")
+    elif name == "incorrect-coding":
+        require(v["blocks_to_detection"] is not None and v["light_halts"] >= 1, f"{what}: no fraud-proof halt")
+        require(v["false_condemnation_rate"] == 0, f"{what}: a false condemnation")
+        # a light halts for bad encoding only after its proof verified
+        require(row["befp_verified"] == v["light_halts"],
+                f"{what}: {row['befp_verified']} verified proofs for {v['light_halts']} halts")
+        if scheme == codec.RS2D_NAME:
+            befp = row["launches_by_source"]["fraud_proofs"]
+            require(befp["sha256_compress"] > 0 and befp["rs_extend_lines"] > 0,
+                    f"{what}: the BEFPs were not checked on the card: {befp}")
+    elif name == "partition-churn":
+        require(v["dropped_msgs"] > 0 and v["recovery_s"] is not None, f"{what}: no cut or no recovery")
+        require(v["false_condemnation_rate"] == 0, f"{what}: a false condemnation")
+
+
+def traffic_heights(tally: ScenarioTally, n_validators: int) -> list[dict]:
+    """Per height of the traffic cell: the square size, K1 and K2 launches
+    per validator (of the work at that height: its square, provers and the
+    PFB commitments of its admission), the host time between the first
+    commits of consecutive heights, the PFBs the traffic waves submitted
+    and the first validator accepted while the chain worked on it, and
+    the PFBs its block confirmed."""
+    out, prev = [], None
+    for h in sorted(tally.heights):
+        rec = tally.heights[h]
+        per = tally.per_validator(h)
+        waves = tally.waves.get(h, {"submitted": 0, "accepted": 0})
+        out.append({
+            "height": h, "k": rec["k"], "txs": rec["txs"], "pfbs_submitted": waves["submitted"],
+            "pfbs_accepted": waves["accepted"], "pfbs_confirmed": rec["pfbs"],
+            "host_s": None if prev is None else rec["t"] - prev,
+            "k1_per_validator": sorted({row["sha256_compress"] for row in per.values()}),
+            "k2_per_validator": sorted({row["rs_extend_lines"] for row in per.values()}),
+            "validators_counted": len(per),
+        })
+        prev = rec["t"]
+    require(all(r["validators_counted"] == n_validators for r in out), f"traffic heights: {out}")
+    return out
+
+
+def scenario_plane(dev: torch.device) -> dict:
+    """The reference's scenario matrix (bench.py --scenario) on the card:
+    tens of real ValidatorNodes and DASers on one seeded virtual timeline
+    per cell, every square, prover, commitment, repair and BEFP through K1
+    and K2. Returns the phase's launch counts."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    tally = ScenarioTally()
+    tally.install()
+    rows, twins = [], {}
+    try:
+        reset_counts()
+        for name in SCENARIO_MATRIX:
+            for scheme in SCENARIO_SCHEMES:
+                doc = scenarios.scenario_spec(name, scheme, SCENARIO_SEED)
+                v, row = scenario_cell(tally, doc, dev, base_mib)
+                check_matrix_verdict(name, scheme, v, row)
+                if scheme == codec.RS2D_NAME and name in SCENARIO_TWINS:
+                    twins[name] = (doc, scenarios.verdict_bytes(v))
+                rows.append(row)
+                emit("scenario_cell", **row)
+
+        doc = scenarios.scenario_spec("long-soak", codec.RS2D_NAME, SCENARIO_SEED)
+        v, row = scenario_cell(tally, doc, dev, base_mib)
+        soak = v["soak"]
+        for resource in ("eds_evictions", "sig_evictions", "commitment_evictions", "mempool_expired",
+                         "snapshot_writes", "pack_builds", "snapshot_prunes", "pack_prunes"):
+            require(soak[resource] >= 2, f"long-soak: {resource} churned {soak[resource]} times: {soak}")
+        require(v["asym_msgs"].get("corrupt", 0) > 0 and v["asym_msgs"].get("delay", 0) > 0,
+                f"long-soak: asymmetric faults {v['asym_msgs']}")
+        require(v["traffic"]["accepted"] > 0 and v["traffic"]["confirmed"] > 0, f"long-soak traffic {v['traffic']}")
+        require(v["false_condemnation_rate"] == 0 and v["light_halts"] == 0, "long-soak: a light halted")
+        row.update(soak=soak, traffic=v["traffic"], asym_msgs=v["asym_msgs"])
+        rows.append(row)
+        emit("scenario_cell", **row)
+
+        # the same specs on the CPU in this process: byte-equal verdicts
+        # (every height's block and app hash, the trace digest, detections)
+        for name, (doc, card_bytes) in twins.items():
+            v, row = scenario_cell(tally, doc, torch.device("cpu"), base_mib)
+            same = scenarios.verdict_bytes(v) == card_bytes
+            require(same, f"{name}: the CPU's verdict bytes differ from the card's")
+            row["verdict_bytes_equal_to_card"] = same
+            rows.append(row)
+            emit("scenario_cell", **row)
+
+        # squares at the App's cap: honest under txsim-shaped PFB traffic
+        doc = scenarios.scenario_spec("honest", codec.RS2D_NAME, SCENARIO_SEED, ops=[dict(SCENARIO_TRAFFIC)])
+        v, row = scenario_cell(tally, doc, dev, base_mib)
+        require(v["false_condemnation_rate"] == 0 and v["light_halts"] == 0, "traffic: a light halted")
+        per_height = traffic_heights(tally, v["validators"])
+        full = [r["height"] for r in per_height if r["k"] == TRAFFIC_K]
+        largest = max(r["k"] for r in per_height)
+        require(len(full) >= TRAFFIC_MIN_FULL_HEIGHTS,
+                f"traffic: heights {full} reach k = {TRAFFIC_K} (largest k {largest}): {per_height}")
+        require(v["traffic"]["confirmed"] > 0, f"traffic: {v['traffic']}")
+        require(sum(w["submitted"] for w in tally.waves.values()) == v["traffic"]["submitted"],
+                f"traffic: waves {tally.waves} against {v['traffic']}")
+        after = {h: w for h, w in tally.waves.items() if h > doc["heights"]}
+        row.update(traffic=v["traffic"], per_height=per_height, full_heights=full, largest_k=largest,
+                   pfbs_after_last_height={key: sum(w[key] for w in after.values())
+                                           for key in ("submitted", "accepted")})
+        rows.append(row)
+        emit("scenario_cell", **row)
+
+        # fleet scale: 1,000 continuation-driven lights, twice with one seed
+        doc = scenarios.scenario_spec("fleet-scale", codec.RS2D_NAME, SCENARIO_SEED, heights=FLEET_HEIGHTS)
+        fleet = []
+        for _ in range(2):
+            v, row = scenario_cell(tally, doc, dev, base_mib, profiled=False)
+            require(v["sim_lights"] == doc["light_nodes"] and v["light_halts"] == 0 and v["false_condemnation_rate"] == 0,
+                    f"fleet-scale: {v['sim_lights']} lights, {v['light_halts']} halts")
+            fleet.append(scenarios.verdict_bytes(v))
+            row["heights_cut_from"] = 1000
+            rows.append(row)
+            emit("scenario_cell", **row)
+        require(fleet[0] == fleet[1], "fleet-scale: two runs with one seed differ")
+
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        tally.remove()
+    summary = [{key: r.get(key) for key in (
+        "scenario", "scheme", "device", "wall_s", "blocks_to_detection", "liveness_gap_s", "recovery_s",
+        "false_condemnation_rate", "launches_by_source", "peak_mib_above_base", "card_busy_share")}
+        for r in rows]
+    emit("scenario_plane", cells=summary, launches=counts, fleet_heights=FLEET_HEIGHTS,
+         fleet_heights_cut_from=1000, fleet_verdict_bytes_identical=True,
+         twins_byte_equal=sorted(twins), phase_s=time.perf_counter() - t_phase)
+    return counts
+
+
 def cmt_host_layers(ods: np.ndarray) -> tuple[list[np.ndarray], list[np.ndarray], bytes]:
     """The CMT encode on the host: numpy LDGM encode and hashlib. (layers,
     hash lists, data root)."""
@@ -3911,6 +4321,7 @@ def main() -> int:
     by_path.update(node_plane(dev, adm["honest_raws"]))
     by_path["consensus_plane"] = consensus_plane(dev, adm["honest_raws"])
     by_path["network_plane"], by_path["light_plane"] = network_plane(dev, adm["honest_raws"])
+    by_path["scenario_plane"] = scenario_plane(dev)
     codec_counts = codec_plane(dev, main)
     by_path["codec_plane"] = {name: sum(c[name] for c in codec_counts.values())
                               for name in ("sha256_compress", "rs_extend_lines")}

@@ -28,8 +28,12 @@ that fails raises, and in ProcessProposal that raise is a reject vote
 the ``process_proposal`` span, and `App.last_reject`.
 
 The reference's ``engine`` argument (device | host | auto | mesh) becomes
-``device``: ``"cpu"`` plays the part of its host engine; there is no
-``auto`` (its silent degrade) and no ``mesh`` yet (the multi-device slice).
+``device`` and ``mesh``: ``device="cpu"`` plays the part of its host
+engine; there is no silent degrade. ``mesh`` (a parallel/mesh.Mesh) is its
+``engine="mesh"``: every square the mesh can shard goes through the
+sharded pipeline (parallel/sharded_eds.py), per block and in the batched
+produce path; ``mesh=None`` is its auto rule (squares of k >= 512 on a
+card take a mesh of the visible cards when there are two or more).
 A disk-backed App with ``pack_keep`` set builds the static proof packs and
 blob packs (das/packs.py, das/blob_packs.py) at warm time, on its device.
 """
@@ -137,8 +141,12 @@ class App:
         # durable storage engine of data_dir (chain/storage.py): "files";
         # the reference's CELESTIA_CHAINDB
         chaindb_backend: str = "files",
+        # the mesh plane (parallel/mesh.Mesh): the reference's
+        # engine="mesh"; None is its auto rule
+        mesh=None,
     ):
         self.device = device_mod.resolve(device)
+        self.mesh = mesh
         self.invariant_check_period = invariant_check_period
         self.traces = telemetry.TraceTables()  # per-node trace tables (§5.1)
         self.absent_validators: set[bytes] = set()
@@ -501,7 +509,7 @@ class App:
                           stages="extend+nmt+root"):
                 entry = self.eds_cache.put(
                     key,
-                    edscache_mod.compute_entry(ods, self.device, scheme),
+                    edscache_mod.compute_entry(ods, self.device, scheme, self.mesh),
                 )
         return entry.dah, entry.data_root
 

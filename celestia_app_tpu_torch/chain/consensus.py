@@ -359,7 +359,8 @@ class ValidatorNode:
                  da_scheme: str = "rs2d-nmt",
                  pack_keep: int | None = None,
                  max_square_size: int | None = None,
-                 app_version: int = 1):
+                 app_version: int = 1,
+                 mesh=None):
         self.name = name
         self.priv = priv
         self.address = priv.public_key().address()
@@ -368,13 +369,14 @@ class ValidatorNode:
         # max_square_size is the consensus-critical k=256/512 admission
         # override (chain/app.py); app_version the genesis version (the
         # reference starts every validator's chain at 1), which every
-        # validator of a chain must share.
+        # validator of a chain must share; mesh the App's mesh plane
+        # (parallel/mesh.Mesh, None for the auto rule).
         self.app = App(chain_id=chain_id, device=device, data_dir=data_dir,
                        app_version=app_version,
                        v2_upgrade_height=v2_upgrade_height,
                        upgrade_height_delay=upgrade_height_delay,
                        da_scheme=da_scheme, pack_keep=pack_keep,
-                       max_square_size=max_square_size)
+                       max_square_size=max_square_size, mesh=mesh)
         self.app.init_chain(genesis)
         # THE mempool: the shared CAT pool (celestia_app_tpu/mempool) —
         # the pre-CAT validator list grew unboundedly (no cap, no TTL) and

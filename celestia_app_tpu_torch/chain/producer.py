@@ -16,7 +16,8 @@ the produce side:
   each group in ONE batched dispatch on the app's device
   (parallel/mesh_engine.compute_entries_batched: `da/eds.pipeline_batched`,
   two K2 launches and one K1 pass for the whole group; 19 K1 at k = 128
-  whatever the batch), inserting DEVICE-RESIDENT entries into the app's
+  whatever the batch; the sharded pipeline over the app's ``mesh`` when
+  one is active for the size), inserting DEVICE-RESIDENT entries into the app's
   content-addressed EDS cache. The subsequent per-block produce rounds
   hit those entries, so the extend→commit→prover-warm chain hands device
   arrays — never bytes — between stages, and ``da.extend_runs`` stays at
@@ -113,7 +114,8 @@ def warm_block_batch(app, plans: list[square_mod.Square]) -> int:
         for key, ods in group:
             seen.setdefault(key, ods)
         batch = np.stack(list(seen.values()))
-        entries = mesh_engine.compute_entries_batched(batch, device=app.device)
+        entries = mesh_engine.compute_entries_batched(batch, device=app.device,
+                                                      mesh=getattr(app, "mesh", None))
         for key, entry in zip(seen.keys(), entries):
             app.eds_cache.put(key, entry)
             inserted += 1

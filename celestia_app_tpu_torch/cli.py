@@ -41,8 +41,14 @@ Where the port differs from the reference:
   Ctrl-C, and on the way out writes one line to stderr
   (`EXIT_LINE_PREFIX` and a JSON object): its device, its K1 and K2
   launch counts, and its peak device memory on a card.
-- Not ported yet: ``relayer``, ``analyze``, ``multihost-worker``,
-  ``multihost-dryrun`` and every ``--grpc`` flag (`DEFERRED`).
+- ``--device mesh`` is the reference's ``--engine mesh``: the card, with
+  the mesh plane over every visible card (parallel/mesh_engine.card_mesh);
+  ``init`` records ``device: "mesh"``. On a one-card host it runs the
+  one-device path, as the reference's mesh engine does on one device.
+- ``multihost-dryrun`` spawns ``multihost-worker`` processes joined by a
+  gloo process group (parallel/multihost.py), on ``--device``.
+- Not ported yet: ``relayer``, ``analyze`` and every ``--grpc`` flag
+  (`DEFERRED`).
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ import sys
 import time
 
 # the reference's commands this port does not carry yet
-DEFERRED = ("relayer", "analyze", "multihost-worker", "multihost-dryrun")
+DEFERRED = ("relayer", "analyze")
 
 # validator-serve's last stderr line: this prefix, then a JSON object
 EXIT_LINE_PREFIX = "validator-exit "
@@ -76,11 +82,26 @@ def _resolve_device(args) -> str:
         except (OSError, ValueError, AttributeError):
             name = None
     name = name or "cuda"
-    if torch.device(name).type == "cuda" and not torch.cuda.is_available():
+    if torch.device(_torch_device(name)).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"no CUDA device for --device {name}: pass --device cpu to run "
             "the plain path")
     return name
+
+
+def _torch_device(name: str) -> str:
+    """The torch device of a ``--device`` value: ``mesh`` runs on the card."""
+    return "cuda" if name == "mesh" else name
+
+
+def _mesh_of(name: str):
+    """The App's ``mesh`` for a ``--device`` value: every visible card for
+    ``mesh`` (None on a one-card host), else None."""
+    if name != "mesh":
+        return None
+    from celestia_app_tpu_torch.parallel import mesh_engine
+
+    return mesh_engine.card_mesh()
 
 
 # Apps opened by _make_app during one cli.main() call; main() closes the
@@ -102,7 +123,8 @@ def _make_app(home: str, device: str):
     app = App(
         chain_id=cfg["chain_id"],
         app_version=cfg.get("app_version", 1),
-        device=device,
+        device=_torch_device(device),
+        mesh=_mesh_of(device),
         data_dir=os.path.join(home, "data"),
         min_gas_price=cfg.get("min_gas_price", appconsts.DEFAULT_MIN_GAS_PRICE),
         invariant_check_period=cfg.get("invariant_check_period", 0),
@@ -761,7 +783,7 @@ def cmd_da_serve(args) -> int:
     (the reference's --engine host|device; its --grpc is not ported)."""
     from celestia_app_tpu_torch.service.da_service import DACore, DAService
 
-    core = DACore(device=args.device)
+    core = DACore(device=_torch_device(args.device))
     svc = DAService(core, port=args.listen)
     print(f"da-serve: http on :{svc.port} (device={core.device})",
           flush=True)
@@ -865,7 +887,7 @@ def cmd_das_follow(args) -> int:
     )
     daser = DASer(list(args.peer), light, store, cfg=cfg,
                   rng=np.random.default_rng(args.seed), name="das-follow",
-                  device=args.device)
+                  device=_torch_device(args.device))
     if daser.halted:
         print(json.dumps({"halted": daser.cp.halted}), flush=True)
         return 1
@@ -1036,6 +1058,36 @@ def cmd_verify(args) -> int:
     return 0
 
 
+def cmd_multihost_worker(args) -> int:
+    """One host of the multi-host mesh (spawned by multihost-dryrun)."""
+    from celestia_app_tpu_torch.parallel import multihost
+
+    out = multihost.worker_main(
+        args.process_id, args.num_processes, args.coordinator,
+        args.k, args.batch, args.devices_per_host, _torch_device(args.device),
+    )
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_multihost_dryrun(args) -> int:
+    """N OS processes x M seq shards = one global mesh running the
+    sharded block pipeline, every host feeding only its own rows; every
+    host's data roots must match the single-host oracle."""
+    from celestia_app_tpu_torch.parallel import multihost
+
+    if args.processes < 1 or args.devices_per_host < 1:
+        print("--processes and --devices-per-host must be >= 1",
+              file=sys.stderr)
+        return 2
+    out = multihost.spawn_dryrun(
+        k=args.k, batch=args.batch, num_processes=args.processes,
+        devices_per_host=args.devices_per_host, device=_torch_device(args.device),
+    )
+    print(json.dumps(out))
+    return 0 if out["all_hosts_match_oracle"] else 1
+
+
 def cmd_e2e_bench(args) -> int:
     """Throughput benchmark on the autonomous process devnet — see
     tools/e2e_bench.py (the test/e2e/benchmark/throughput.go analog)."""
@@ -1092,7 +1144,8 @@ def cmd_validator_serve(args) -> int:
         max_square_size=home_cfg.get("max_square_size"),
         # the block plane runs on the card unless the process was asked
         # for the CPU (the reference defaults validators to its host engine)
-        device=args.device,
+        device=_torch_device(args.device),
+        mesh=_mesh_of(args.device),
     )
     # fault plane (chaos provisioning): <home>/faults.json arms named
     # fault points for THIS process at startup — the config-file twin of
@@ -1195,8 +1248,11 @@ def cmd_validator_serve(args) -> int:
     except KeyboardInterrupt:
         pass
     finally:
-        # the line first: a spawner kills a child that is slow to stop
-        print(EXIT_LINE_PREFIX + json.dumps(_exit_doc(vnode)), file=sys.stderr, flush=True)
+        # the line first: a spawner kills a child that is slow to stop. One
+        # write, newline included: print writes the newline apart, and another
+        # thread's output could land between the two on the same line
+        sys.stderr.write(EXIT_LINE_PREFIX + json.dumps(_exit_doc(vnode)) + "\n")
+        sys.stderr.flush()
         if svc.reactor is not None:
             svc.reactor.stop()
         if http_service is not None:
@@ -1250,7 +1306,7 @@ def _spawn_validator_processes(args, genesis, extra_flags=(),
     import subprocess
     import time as time_mod
 
-    if args.device.split(":")[0] == "cuda":
+    if _torch_device(args.device).split(":")[0] == "cuda":
         from celestia_app_tpu_torch import cuda_build
 
         cuda_build.build()
@@ -1575,7 +1631,8 @@ def cmd_devnet(args) -> int:
         _ensure_home_config(home, args.chain_id, args.device)
         nodes.append(consensus.ValidatorNode(
             f"val{i}", privs[i], genesis, args.chain_id,
-            data_dir=os.path.join(home, "data"), device=args.device,
+            data_dir=os.path.join(home, "data"), device=_torch_device(args.device),
+            mesh=_mesh_of(args.device),
         ))
     net = consensus.LocalNetwork(nodes)
     services = []
@@ -2054,8 +2111,10 @@ def main(argv=None) -> int:
     common = argparse.ArgumentParser(add_help=False)
     common.add_argument(
         "--device", default=None,
-        help="torch device: cuda (the card, the default) or cpu (the plain "
-             "path); default: the home's config.json device, else cuda")
+        help="torch device: cuda (the card, the default), cpu (the plain "
+             "path) or mesh (the card, with the mesh plane over every "
+             "visible card); default: the home's config.json device, else "
+             "cuda")
 
     def leaf(group, name, **kw):
         return group.add_parser(name, parents=[common], **kw)
@@ -2224,6 +2283,27 @@ def main(argv=None) -> int:
     p.add_argument("--namespace",
                    help="29-byte namespace hex (default: share 0's)")
     p.set_defaults(fn=cmd_verify)
+
+    p = leaf(
+        sub, "multihost-dryrun",
+        help="prove the cross-host path: N worker processes x M seq shards "
+             "as ONE global mesh (torch.distributed over gloo), sharded "
+             "pipeline, every host checking the mesh's roots against the "
+             "one-device pipeline")
+    p.add_argument("--processes", type=int, default=2)
+    p.add_argument("--devices-per-host", type=int, default=4)
+    p.add_argument("--k", type=int, default=16)
+    p.add_argument("--batch", type=int, default=2)
+    p.set_defaults(fn=cmd_multihost_dryrun)
+
+    p = leaf(sub, "multihost-worker")  # internal (spawned)
+    p.add_argument("--process-id", type=int, required=True)
+    p.add_argument("--num-processes", type=int, required=True)
+    p.add_argument("--coordinator", required=True)
+    p.add_argument("--k", type=int, required=True)
+    p.add_argument("--batch", type=int, required=True)
+    p.add_argument("--devices-per-host", type=int, required=True)
+    p.set_defaults(fn=cmd_multihost_worker)
 
     p = leaf(
         sub,

@@ -39,13 +39,13 @@ def _axis_leaf_ns(eds: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(in_q0.unsqueeze(-1), eds[..., :NS], nmt.parity_ns(eds.device))
 
 
-def _on_device(ods, dev: torch.device) -> torch.Tensor:
+def ods_on_device(ods, dev: torch.device, site: str = "eds.pipeline") -> torch.Tensor:
     """The ODS as a tensor on `dev`: a tensor already there is taken as it
-    lies, anything else is copied through the transfer ledger."""
+    lies, anything else is copied through the transfer ledger under
+    `site`."""
     if isinstance(ods, torch.Tensor) and ods.device == device_mod.concrete(dev):
         return ods
-    return xfer.to_device(ods if isinstance(ods, torch.Tensor) else np.asarray(ods),
-                          "eds.pipeline", device=dev)
+    return xfer.to_device(ods if isinstance(ods, torch.Tensor) else np.asarray(ods), site, device=dev)
 
 
 def _pipeline(ods: torch.Tensor):
@@ -81,7 +81,7 @@ def pipeline(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(k, k, 512) u8 ODS -> (eds, row_roots, col_roots, data_root) tensors
     on `device`: (2k, 2k, 512), (2k, 90), (2k, 90), (32,)."""
-    ods = _on_device(ods, device_mod.resolve(device))
+    ods = ods_on_device(ods, device_mod.resolve(device))
     if ods.dim() != 3:
         raise ValueError(f"ODS must be (k, k, 512) uint8, got {tuple(ods.shape)} {ods.dtype}")
     eds, rows, cols, roots = _pipeline(ods[None])
@@ -97,7 +97,7 @@ def pipeline_batched(
     there). Every block is byte-equal to one `pipeline` call, and the batch
     takes the launches of one block: 2 K2 and 1 + log2(2k) + 1 + log2(4k)
     K1 (19 at k = 128)."""
-    ods = _on_device(ods_batch, device_mod.resolve(device))
+    ods = ods_on_device(ods_batch, device_mod.resolve(device))
     if ods.dim() != 4 or ods.shape[0] < 1:
         raise ValueError(f"ODS batch must be (B, k, k, 512) uint8, got {tuple(ods.shape)} {ods.dtype}")
     return _pipeline(ods)

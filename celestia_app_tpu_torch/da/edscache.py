@@ -20,12 +20,13 @@ light clients sample it; the cache makes that one encode per square.
   pass between them and a row-proof reader never waits on a column build.
 
 - **Device-resident entries.** `DeviceEntry` (built by the batched
-  dispatch, parallel/mesh_engine.compute_entries_batched) keeps the
-  extended square and, once warmed, both orientations' NMT levels on the
-  card; host bytes come down lazily, only when a proof needs them, and
-  every such crossing counts (`crossings()`). `compute_entry` keeps
-  returning a host `EdsCacheEntry`, as the reference's single-device path
-  does.
+  dispatch, parallel/mesh_engine.compute_entries_batched, and by the mesh
+  engine, mesh_engine.compute_entry_mesh) keeps the extended square and,
+  once warmed, both orientations' NMT levels on the card; host bytes come
+  down lazily, only when a proof needs them, and every such crossing
+  counts (`crossings()`). `compute_entry` returns a host `EdsCacheEntry`
+  on one device, as the reference's single-device path does, and a
+  `DeviceEntry` when the square goes through a mesh (``mesh=``).
 
 - **Background warmup.** `ProverWarmer` is the single coalescing worker
   thread ``App.commit`` hands each committed entry to: it builds the
@@ -292,17 +293,30 @@ class DeviceEntry(EdsCacheEntry):
             return self._col_prover
 
 
-def compute_entry(ods: np.ndarray, device=None, scheme: str = codec_mod.RS2D_NAME):
+def compute_entry(ods: np.ndarray, device=None, scheme: str = codec_mod.RS2D_NAME, mesh=None):
     """ODS -> the scheme's entry, computed on `device` (the card unless the
     caller asks for the CPU). The default scheme is one `eds.pipeline` pass,
     its outputs brought to the host; the others go through the registry's
-    encode hook (CodecError for a scheme the registry does not carry)."""
+    encode hook (CodecError for a scheme the registry does not carry) and
+    ignore `mesh`.
+
+    `mesh` (a parallel/mesh.Mesh) is the reference's ``engine="mesh"``:
+    every square its devices can shard goes through the sharded pipeline
+    and comes back as a `DeviceEntry`. ``mesh=None`` is the reference's
+    auto rule: squares of k >= mesh_engine.DEFAULT_MESH_MIN_K on a card
+    take the mesh when two or more cards are visible. A square the mesh
+    cannot shard (k = 1) takes the one-device path; a mesh failure
+    raises."""
     if scheme != codec_mod.RS2D_NAME:
         codec = codec_mod.get(scheme)  # CodecError before the counter moves
         telemetry.incr("da.extend_runs")
         return codec._encode_impl(ods, device)
     telemetry.incr("da.extend_runs")
-    dev = device_mod.resolve(device)
+    dev = device_mod.resolve(device) if mesh is None else mesh.lead
+    from celestia_app_tpu_torch.parallel import mesh_engine
+
+    if mesh_engine.mesh_active_for(int(ods.shape[0]), mesh, dev):
+        return mesh_engine.compute_entry_mesh(ods, mesh)
     eds, rows, cols, root = device_profile.instrument(
         "eds.pipeline", lambda: eds_mod.pipeline(ods, dev), key=int(ods.shape[0]), device=dev)
     eds_h, rows_h, cols_h, root_h = xfer.to_host((eds, rows, cols, root), "edscache.compute_entry")

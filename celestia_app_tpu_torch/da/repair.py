@@ -135,6 +135,7 @@ def repair_eds(
     device=None,
     field: int | None = None,
     traces=None,
+    mesh=None,
 ) -> np.ndarray:
     """Rebuild the full (2k, 2k, 512) EDS from the shares marked present.
 
@@ -149,7 +150,10 @@ def repair_eds(
     reference, which uses no device). `field` forces the code's field
     (8 or 16 bits); by default the protocol's choice for k, so squares
     wider than 128 decode in GF(2^16). `traces` pins the span sink (a
-    light node passes its own TraceTables)."""
+    light node passes its own TraceTables). `mesh` (a parallel/mesh.Mesh;
+    ``None`` is the auto rule of parallel/mesh_engine) shards the batched
+    engine's decodes and root reductions over the mesh's devices when the
+    mesh plane is active for k: the same bytes by construction."""
     if engine not in ("batched", "scalar"):
         raise ValueError(f"repair engine must be 'batched' or 'scalar', not {engine!r}")
     symbols, present, two_k = _validate(symbols, present, row_roots, col_roots)
@@ -157,7 +161,7 @@ def repair_eds(
     if engine == "scalar":
         return _repair_scalar(symbols, present, row_roots, col_roots, two_k, field, traces)
     return _repair_batched(symbols, present, row_roots, col_roots, two_k,
-                           device_mod.resolve(device), field, traces)
+                           device_mod.resolve(device), field, traces, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +275,7 @@ def _equal_per_axis(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
     return xfer.to_host((a == b).flatten(1).all(dim=1), "ops.repair_fetch")
 
 
-def _decode_phase(sym, present, axis: str, verified, two_k: int, field: int) -> tuple:
+def _decode_phase(sym, present, axis: str, verified, two_k: int, field: int, mesh) -> tuple:
     """Decode every repairable axis of one orientation. Returns
     (completed, full_set): `completed` is the ascending list of axis
     indices now holding all 2k shares (decoded in this phase or fully
@@ -300,7 +304,7 @@ def _decode_phase(sym, present, axis: str, verified, two_k: int, field: int) -> 
         run = rs.repair_axes_fn(k, pattern, sym.device, field)
         sel = _select(axes, sym.device, "ops.repair_dispatch")
         batch = _take(sym, axis, sel)
-        out = run(batch)
+        out = run(batch, mesh)
         ok = _equal_per_axis(out.index_select(1, run.present_index),
                              batch.index_select(1, run.present_index))
         values = out.index_select(1, run.missing_index)
@@ -316,7 +320,7 @@ def _decode_phase(sym, present, axis: str, verified, two_k: int, field: int) -> 
 
 
 def _verify_phase(sym, present, axis: str, verified, roots, completed, full_set, two_k: int,
-                  field: int, traces) -> bool:
+                  field: int, traces, mesh) -> bool:
     """Batched verification of every axis completed in this phase: one
     eds_axis_roots reduction recomputes all their roots, one decode over
     the pattern "all present" covers the fully-present axes' codeword
@@ -338,9 +342,9 @@ def _verify_phase(sym, present, axis: str, verified, roots, completed, full_set,
                 pick = xfer.to_device(np.asarray([pos[i] for i in ordered], dtype=np.int64),
                                       "ops.repair_dispatch", device=sym.device)
                 full_slabs = slabs.index_select(0, pick)
-            rec = rs.repair_axes_fn(k, tuple(range(two_k)), sym.device, field)(full_slabs)
+            rec = rs.repair_axes_fn(k, tuple(range(two_k)), sym.device, field)(full_slabs, mesh)
             codeword_ok = dict(zip(ordered, _equal_per_axis(rec, full_slabs)))
-        got = nmt.eds_axis_roots(slabs, completed, k, sym.device)
+        got = nmt.eds_axis_roots(slabs, completed, k, sym.device, mesh)
     for b, i in enumerate(completed):
         if i in full_set and not codeword_ok[i]:
             raise BadEncodingError(axis, i)
@@ -354,7 +358,8 @@ def _verify_phase(sym, present, axis: str, verified, roots, completed, full_set,
     return True
 
 
-def _repair_batched(symbols, present, row_roots, col_roots, two_k, device, field, traces) -> np.ndarray:
+def _repair_batched(symbols, present, row_roots, col_roots, two_k, device, field, traces,
+                    mesh) -> np.ndarray:
     sym = xfer.to_device(symbols, "ops.repair_dispatch", device=device)
     verified_rows = [False] * two_k
     verified_cols = [False] * two_k
@@ -365,9 +370,9 @@ def _repair_batched(symbols, present, row_roots, col_roots, two_k, device, field
         with obs.span("da.repair.sweep", traces=traces, engine="batched", sweep=sweep) as sp:
             for axis, verified, roots in (("row", verified_rows, row_roots),
                                           ("col", verified_cols, col_roots)):
-                completed, full_set = _decode_phase(sym, present, axis, verified, two_k, field)
+                completed, full_set = _decode_phase(sym, present, axis, verified, two_k, field, mesh)
                 if _verify_phase(sym, present, axis, verified, roots, completed, full_set, two_k, field,
-                                 traces):
+                                 traces, mesh):
                     progress = True
             sp.set(progress=progress)
         if all(verified_rows) and all(verified_cols):

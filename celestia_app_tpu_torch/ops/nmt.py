@@ -140,7 +140,7 @@ def eds_axis_leaf_ns(slabs: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Te
     return torch.where(in_q0, slabs[..., :NS], parity_ns(slabs.device))
 
 
-def eds_axis_roots(slabs, indices, k: int, device=None) -> np.ndarray:
+def eds_axis_roots(slabs, indices, k: int, device=None, mesh=None) -> np.ndarray:
     """NMT roots of a batch of EDS axes: (n, 2k, 512) uint8 slabs (numpy,
     or a tensor) and their n axis indices -> (n, 90) uint8 serialized roots
     on the host, computed on `device` (the card unless the caller asks for
@@ -151,21 +151,39 @@ def eds_axis_roots(slabs, indices, k: int, device=None) -> np.ndarray:
 
     The crossings are the transfer ledger's ``ops.roots_dispatch`` (slabs
     that are not on `device` yet, and the axis indices) and
-    ``ops.roots_fetch`` (the roots)."""
+    ``ops.roots_fetch`` (the roots).
+
+    When the mesh plane is active for k (`mesh`, a parallel/mesh.Mesh, or
+    ``None`` for the auto rule: parallel/mesh_engine), the trees are split
+    over the mesh's flat device list (host slabs and indices cross under
+    ``mesh.shard_batch``), each part is one reduction on its own device
+    and the roots are gathered on `device` (the mesh's lead device when
+    `device` is None)."""
+    from celestia_app_tpu_torch.parallel import mesh_engine
+
+    if mesh is not None and device is None:
+        device = mesh.lead
     dev = device_mod.concrete(device_mod.resolve(device))
-    if not (isinstance(slabs, torch.Tensor) and slabs.device == dev):
-        if not isinstance(slabs, torch.Tensor):
-            slabs = np.ascontiguousarray(slabs, dtype=np.uint8)
-        slabs = xfer.to_device(slabs, "ops.roots_dispatch", device=dev)
+    if not isinstance(slabs, torch.Tensor):
+        slabs = np.ascontiguousarray(slabs, dtype=np.uint8)
     n = slabs.shape[0]
-    if slabs.dtype != torch.uint8 or slabs.dim() != 3 or slabs.shape[1:] != (2 * k, appconsts.SHARE_SIZE):
+    if slabs.dtype not in (torch.uint8, np.uint8) or slabs.ndim != 3 or \
+            tuple(slabs.shape[1:]) != (2 * k, appconsts.SHARE_SIZE):
         raise ValueError(f"slabs must be (n, {2 * k}, {appconsts.SHARE_SIZE}) uint8, got "
                          f"{tuple(slabs.shape)} {slabs.dtype}")
     if len(indices) != n:
         raise ValueError(f"{len(indices)} indices for {n} axes")
     if n == 0:
         return np.zeros((0, appconsts.NMT_ROOT_SIZE), dtype=np.uint8)
-    idx = xfer.to_device(np.asarray(indices, dtype=np.int64), "ops.roots_dispatch", device=dev)
+    idx = np.asarray(indices, dtype=np.int64)
+    parts = mesh_engine.maybe_shard_batch(slabs, k, mesh, dev)
+    if parts is not None:
+        idx_parts = mesh_engine.maybe_shard_batch(idx, k, mesh, dev)
+        roots = [nmt_roots(eds_axis_leaf_ns(p, i, k), p) for p, i in zip(parts, idx_parts)]
+        return xfer.to_host(mesh_engine.gather(roots, dev), "ops.roots_fetch")
+    if not (isinstance(slabs, torch.Tensor) and slabs.device == dev):
+        slabs = xfer.to_device(slabs, "ops.roots_dispatch", device=dev)
+    idx = xfer.to_device(idx, "ops.roots_dispatch", device=dev)
     return xfer.to_host(nmt_roots(eds_axis_leaf_ns(slabs, idx, k), slabs), "ops.roots_fetch")
 
 

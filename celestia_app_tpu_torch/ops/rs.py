@@ -229,7 +229,7 @@ class RepairAxes:
         self.missing_index = torch.tensor(self.missing, dtype=torch.int64, device=device)
         self._fwht = None  # decode_fwht's operands, built on its first call
 
-    def __call__(self, batch: torch.Tensor) -> torch.Tensor:
+    def __call__(self, batch: torch.Tensor, mesh=None) -> torch.Tensor:
         """(n, 2k, 512) uint8 axes on this device, any strides, anything at
         the missing positions -> (n, 2k, 512) full codewords re-encoded from
         the use positions, in a fresh tensor: one gather of the use shards
@@ -239,13 +239,31 @@ class RepairAxes:
 
         The output is the re-encode: where the input holds more than k
         present shares, the extra ones are overwritten, not passed through
-        (da/repair.py compares them to detect inconsistent axes)."""
+        (da/repair.py compares them to detect inconsistent axes).
+
+        When the mesh plane is active for k (`mesh`, a parallel/mesh.Mesh,
+        or ``None`` for the auto rule: parallel/mesh_engine), the batch is
+        split over the mesh's flat device list and each part decodes on its
+        own device with that device's operands (two K2 launches per part);
+        the parts are gathered on this device."""
         k = self.k
         if batch.dtype != torch.uint8 or batch.dim() != 3 or batch.shape[1:] != (2 * k, SHARE):
             raise ValueError(f"batch must be (n, {2 * k}, {SHARE}) uint8, got "
                              f"{tuple(batch.shape)} {batch.dtype}")
         if batch.device != self.device:
             raise ValueError(f"batch on {batch.device}, decode operands on {self.device}")
+        from celestia_app_tpu_torch.parallel import mesh_engine
+
+        parts = mesh_engine.maybe_shard_batch(batch, k, mesh, self.device)
+        if parts is not None:
+            return mesh_engine.gather(
+                [repair_axes_fn(k, self.present, p.device, self.field)._decode(p) for p in parts],
+                self.device)
+        return self._decode(batch)
+
+    def _decode(self, batch: torch.Tensor) -> torch.Tensor:
+        """`__call__` on this device, the batch checked."""
+        k = self.k
         out = torch.empty((batch.shape[0], 2 * k, SHARE), dtype=torch.uint8, device=self.device)
         if batch.shape[0]:
             src = batch.index_select(1, self.use_index)

@@ -1,2 +1,3 @@
-"""Batched and streamed block work on one card: the one-card half of
-celestia_app_tpu/parallel (mesh_engine's batched dispatch, streaming)."""
+"""Batched, streamed and sharded block work: the port of
+celestia_app_tpu/parallel (the device mesh, the sharded pipeline, the mesh
+engine and its batched dispatch, streaming and the multi-host dryrun)."""

@@ -2,8 +2,9 @@
 while the card extends and commits block i. The port of the one-card half
 of celestia_app_tpu/parallel/streaming.py (`stream_blocks`,
 `_stream_batches`, `_synthetic_layout`, `bench_stream`,
-`bench_stream_batched`); the mesh variants wait for the multi-device
-slice.
+`bench_stream_batched`) and of its mesh half (`stream_blocks_mesh`,
+`bench_stream_mesh`: the same loop over the sharded pipeline,
+parallel/sharded_eds.py, the upload landing on the mesh's lead device).
 
 jax got the overlap from asynchronous dispatch alone. Here it is built:
 
@@ -42,6 +43,8 @@ import torch
 from celestia_app_tpu_torch import device as device_mod
 from celestia_app_tpu_torch.da import eds as eds_mod
 from celestia_app_tpu_torch.obs import xfer
+from celestia_app_tpu_torch.parallel import mesh as mesh_mod
+from celestia_app_tpu_torch.parallel import sharded_eds
 
 counters = {"streaming.overlap_stalls": 0, "streaming.blocks_in_flight": 0,
             "streaming.max_blocks_in_flight": 0, "streaming.fetches": 0, "streaming.fetch_s": 0.0,
@@ -161,6 +164,61 @@ def _stream_batches(layout_fn, n_batches: int, run=None, device=None) -> list[by
     dev = device_mod.resolve(device)
     run = run if run is not None else (lambda ods: eds_mod.pipeline_batched(ods, dev))
     return _stream(layout_fn, n_batches, lambda ods: run(ods)[3], dev)
+
+
+def stream_blocks_mesh(layout_fn, n_batches: int, mesh, k: int) -> list[bytes]:
+    """Mesh-sharded streaming: each unit is a batch of ``data``-many squares
+    (``layout_fn(i) -> (B, k, k, 512)``) through the sharded pipeline over
+    `mesh` (a parallel/mesh.Mesh), rows split over ``seq`` and blocks over
+    ``data``, while the host lays out batch i+1. The upload lands on the
+    mesh's lead device and the shards take their slabs from there.
+    Returns the flat list of 32-byte data roots."""
+
+    def unit(ods: torch.Tensor) -> torch.Tensor:
+        if tuple(ods.shape[1:3]) != (k, k):
+            raise ValueError(f"batch layout is {tuple(ods.shape)}, not (B, {k}, {k}, 512) squares")
+        return sharded_eds.sharded_pipeline(mesh, ods)[3]
+
+    return _stream(layout_fn, n_batches, unit, mesh.lead)
+
+
+def bench_stream_mesh(k: int | None = None, n_batches: int = 3, n_devices: int = 8,
+                      devices=None) -> dict:
+    """Streamed blocks/s on an n-device mesh (the reference's 256 x 256
+    streaming on 8 devices). `devices` defaults to the visible cards; k
+    defaults to 256 on a card and 32 elsewhere. One JSON-able dict; times
+    are host seconds."""
+    devices = list(mesh_mod.visible_cards() if devices is None else devices)
+    if not devices:
+        raise RuntimeError("no CUDA device: pass devices=[...] to stream over a mesh elsewhere")
+    n_devices = min(n_devices, len(devices))
+    lead = torch.device(devices[0])
+    if k is None:
+        k = 256 if lead.type == "cuda" else 32
+    mesh = mesh_mod.make_mesh(n_devices, k=k, devices=devices[:n_devices])
+    batch = mesh.shape[mesh_mod.DATA_AXIS]
+
+    def layout(i: int) -> np.ndarray:
+        return np.stack([_synthetic_layout(k, i * batch + j) for j in range(batch)])
+
+    # first-use set-up (operands, caches) out of the timing
+    xfer.to_host(sharded_eds.sharded_pipeline(mesh, layout(0))[3], "streaming.warm")
+    t0 = time.perf_counter()
+    roots = stream_blocks_mesh(layout, n_batches, mesh, k)
+    dt = time.perf_counter() - t0
+    n_blocks = n_batches * batch
+    if len(roots) != n_blocks or any(len(r) != 32 for r in roots):
+        raise AssertionError(f"{len(roots)} data roots for {n_blocks} blocks")
+    return {
+        "metric": f"stream_mesh_blocks_per_sec_k{k}",
+        "value": n_blocks / dt,
+        "unit": "blocks/s",
+        "device": _device_name(mesh.lead),
+        "devices": n_devices,
+        "mesh": dict(mesh.shape),
+        "blocks": n_blocks,
+        "elapsed_s": dt,
+    }
 
 
 def _device_name(dev: torch.device) -> str:

@@ -216,13 +216,36 @@ final line is never printed):
    and on the CPU; then 4 autonomous validator processes with their node
    HTTP services under txsim (8 blob and 2 send lanes of 4 txs, PFBs of 1-3
    blobs of 100-250 KB: some height fills a k = 64 square), dasload (1,000
-   samplers) and blobload (256 readers) with no chunk mismatch, and
-   timeline, whose transfer-ledger leaves carry the reference's site
+   samplers) and blobload (64 readers of 2 requests) with no chunk
+   mismatch, and timeline, whose transfer-ledger leaves carry the reference's site
    names; after a clean stop, blockscan and blocktime over validator 0's
    home equal to the nodes' /block answers. The children's launches are
    the `cli` path of the kernels line; `cli_setup`, `cli_e2e_bench`,
    `cli_network` and `cli_plane` lines;
-13. the two other codecs on the same ODS, on cuda, for cmt-ldpc and
+13. the mesh plane (`mesh_plane`): parallel/sharded_eds.sharded_pipeline
+   on meshes that name this card n times, k = 128 (B = 2) at (data, seq) =
+   (1, 2), (1, 4) and (2, 2) and k = 256 and 512 at (1, 4), each dispatch's
+   EDS, row and column roots and data roots byte-equal to the one-card
+   eds.pipeline_batched and its K1 / K2 launches equal to mesh_launches
+   (per shard a row and a column pass, one leaf launch and log2(2k) inner
+   levels per orientation; one data-root tree), with CUDA-event times and
+   peak memory beside the one-card ones; with several cards
+   (mesh_over_cards), the same over all of them and the auto rule
+   (mesh=None) leaving k = 256 on one card and sharding a k = 512 entry, a
+   repair and a batched dispatch over the cards, each with one card's
+   roots and the batch's entries on the lead card (not yet run on a
+   multi-card host: PERF.md section 7); on one card, mesh_for is None for
+   every k; a k = 256 big-block entry through compute_entry(mesh=) with
+   share proofs and a namespace read equal to the one-card entry's, no host
+   crossing after warm(), and a half-columns repair through the sharded
+   batches (8 (1 + log2 2k) K1); an App with a 256 square cap and a mesh
+   committing the admission plane's raws in two batched heights with the
+   one-card App's block and app hashes, a k = 256 sharded dispatch and no
+   host crossing; bench_stream_mesh at k = 256 (3 blocks) with the card's
+   idle share; and `multihost-dryrun` on cuda (2 worker processes of 2
+   shards, gloo), every host matching its oracle with the launches its
+   shards imply; `mesh_shape` lines and one `mesh_plane` line;
+14. the two other codecs on the same ODS, on cuda, for cmt-ldpc and
    pcmt-polar each: compute_entry cold (every code table derived and
    uploaded) and warm, with the K1 launches of the layer plan (4 for CMT,
    29 for PCMT at k = 128), the data root and every layer equal to the
@@ -237,7 +260,7 @@ final line is never printed):
    attributes it; the block cache (a hit makes no launch); and
    rs_tunable's axis encode (64 shares to 128) against its host version;
    one `codec_plane` line;
-14. the scale plane (`scale_plane`): two blocks shaped like the upstream
+15. the scale plane (`scale_plane`): two blocks shaped like the upstream
    e2e big-block manifests (GovMaxSquareSize 512, PFBs of 6 blobs of
    200 KB, seeded), about 8 MB (k = 256) and 64 MB (k = 512), built by
    square.build(max_square_size=512) and run through new_dah_from_ods on
@@ -263,16 +286,16 @@ final line is never printed):
    seeded k = 128 and 4 seeded k = 256 blocks laid out by square.build,
    roots equal to the serial run, with blocks/s, the serial sum, overlap
    stalls and the card's idle share from a torch.profiler trace; at its
-   end the 16-bit operands it cached are freed, so that phase 15's peak
+   end the 16-bit operands it cached are freed, so that phase 16's peak
    memory counts what it did before this phase;
-15. times with CUDA events after warm-up: the block, each kernel at the main
+16. times with CUDA events after warm-up: the block, each kernel at the main
    path's shapes, each plain version, K2's library yardsticks (fp16
    torch.matmul and torch._int_mm of the same product) and the two-launch
    extension; the tensor-core instructions in K2's SASS (cuobjdump); and a
    torch.profiler trace of the block for its device busy time by kernel.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
-summed over the paths driven in phases 4 to 14 and split by path; the last
+summed over the paths driven in phases 4 to 15 and split by path; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits with code 2 before any of this.
 """
@@ -2143,9 +2166,9 @@ class LaunchTally:
             return make
 
         def entry(orig):
-            def run(ods, device=None, scheme=codec.RS2D_NAME):
+            def run(ods, device=None, scheme=codec.RS2D_NAME, mesh=None):
                 with self.tag(what="entry"):
-                    out = orig(ods, device, scheme)
+                    out = orig(ods, device, scheme, mesh)
                 self._record(self.entries, out.k)
                 return out
             return run
@@ -3591,6 +3614,10 @@ CLI_BLOCK_TIME = 1.0
 CLI_TXSIM = ("--blob-sequences", "8", "--send-sequences", "2", "--blob-sizes", "100000-250000",
              "--blobs-per-pfb", "1-3", "--txs-per-sequence", "4")  # PR 12's traffic cell, over HTTP
 CLI_FULL_K = 64  # the default square cap that full heights reach
+# a quarter of blobload's default readers and half its requests: at its
+# defaults (256 x 4 batched requests of 64 queries) it saturates the read
+# plane for 82-251 s, most of them timed out, and the script nears its limit
+CLI_BLOBLOAD = ("--readers", "64", "--requests", "2")
 CLI_FUNDED_KEYS = 10  # `keys derive 0..9`: the txsim lanes' accounts
 # the transfer-ledger sites this slice gave their reference names; the old
 # port names must not appear
@@ -3779,7 +3806,8 @@ def cli_network(dev: torch.device, root: str) -> dict:
         steps["dasload"] = {"s": seconds, **das_rep}
 
         out, seconds = port_cli("blobload", "--url", http[0], "--heights", ",".join(map(str, pfb_heights[-4:])),
-                                "--namespaces", ",".join(namespaces), "--device", dev.type, timeout=600)
+                                "--namespaces", ",".join(namespaces), *CLI_BLOBLOAD, "--device", dev.type,
+                                timeout=600)
         blob_rep = json.loads(out.stdout)
         require(blob_rep["chunk_hash_mismatches"] == 0 and blob_rep["namespace_queries"] > 0
                 and blob_rep["present_ratio"] > 0, f"blobload: {blob_rep}")
@@ -3864,6 +3892,310 @@ def cli_plane(dev: torch.device) -> dict:
          e2e_blocks_per_s=e2e["summary"]["blocks_per_sec"],
          network_blocks_per_s=net["steps"]["inspection"]["blocks_per_s"],
          phase_s=time.perf_counter() - t_phase)
+    return counts
+
+
+MESH_SHAPES = ((128, 1, 2, 2), (128, 1, 4, 2), (128, 2, 2, 2), (256, 1, 4, 1), (512, 1, 4, 1))  # (k, data, seq, B)
+MESH_CARDS_SHAPES = ((128, 2), (256, 1), (512, 1))  # (k, B) over every card, when there are several
+MESH_SHARDS = 4  # the [cuda:0] * 4 mesh of the entry, repair, App and streaming checks
+MESH_ENTRY_K = 256  # the mesh entry, App and streaming checks on explicit meshes
+MESH_STREAM_BATCHES = 3
+MESH_MULTIHOST = ("--processes", "2", "--devices-per-host", "2", "--k", "64", "--batch", "2")
+
+
+def mesh_launches(k: int, n_shards: int) -> dict:
+    """K1 and K2 launches of one sharded dispatch over n shards: per shard a
+    row and a column pass (K2 in GF(2^8)), one leaf launch and log2(2k)
+    inner levels for each orientation; one data-root tree on the lead."""
+    log2_2k = int(math.log2(2 * k))
+    return {"sha256_compress": n_shards * (1 + 2 * log2_2k) + 1 + int(math.log2(4 * k)),
+            "rs_extend_lines": 0 if leopard.uses_gf16(k) else 2 * n_shards}
+
+
+def same_proof(a, b) -> bool:
+    (sa, pa), (sb, pb) = a, b
+    return sa == sb and (pa.start, pa.end, pa.total, list(pa.nodes)) == (pb.start, pb.end, pb.total, list(pb.nodes))
+
+
+def mesh_app_heights(dev: torch.device, mesh, honest_raws: list[bytes]) -> dict:
+    """The admission plane's raws through an App with a 256 square cap and
+    produce_batch 2: (block hashes, app hash, squares' k, sharded
+    dispatches' shapes, edscache crossings of the produce path)."""
+    from celestia_app_tpu_torch.parallel import sharded_eds
+
+    gen = node_genesis()
+    gen["gov_max_square_size"] = MESH_ENTRY_K
+    app = app_mod.App(chain_id="chip-smoke", app_version=3, device=dev, mesh=mesh, max_square_size=MESH_ENTRY_K)
+    app.init_chain(gen)
+    node = node_mod.Node(app)
+    results = node.broadcast_txs(honest_raws)
+    refused = [r.log for r in results if r.code != 0]
+    require(not refused, f"the App refused {len(refused)} honest txs, first {refused[:1]}")
+    real, dispatches = sharded_eds.sharded_pipeline, []
+
+    def counting(m, ods):
+        dispatches.append({"k": int(ods.shape[1]), "blocks": int(ods.shape[0]), **m.shape})
+        return real(m, ods)
+
+    sharded_eds.sharded_pipeline = counting
+    try:
+        x0 = edscache.crossings()["host_crossings"]
+        out = node.produce_blocks_batched(2, t=NODE_T0 + 10)
+        app.da_warmer.wait_idle()
+        crossed = edscache.crossings()["host_crossings"] - x0
+    finally:
+        sharded_eds.sharded_pipeline = real
+    return {"hashes": [blk.header.hash().hex() for blk, _ in out], "app_hash": app.last_app_hash.hex(),
+            "k": [blk.header.square_size for blk, _ in out], "dispatches": dispatches, "crossings": crossed,
+            "left_in_pool": len(node.pool)}
+
+
+def all_cards_ms(fn, reps: int) -> float:
+    """Mean host ms of fn() with every card synchronised before and after."""
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def mesh_over_cards(dev: torch.device) -> dict:
+    """With several cards: the sharded pipeline over all of them (peer
+    copies) against one card at k = 128, 256 and 512, and the auto rule
+    (mesh=None): a k = 256 square stays on one card, a k = 512 entry, its
+    half-columns repair and a batched dispatch of two k = 512 squares shard
+    over the cards, each byte-equal to one card's. Not counted in the
+    launch paths."""
+    from celestia_app_tpu_torch.parallel import mesh as mesh_mod
+    from celestia_app_tpu_torch.parallel import sharded_eds
+
+    rng = np.random.default_rng(SEED + 92)
+
+    def ods_of(b: int, k: int) -> np.ndarray:
+        ods = rng.integers(0, 256, size=(b, k, k, appconsts.SHARE_SIZE), dtype=np.uint8)
+        ods[..., :29] = 0
+        ods[..., 28] = 7
+        return ods
+
+    out = {"cards": torch.cuda.device_count(), "shapes": []}
+    for k, b in MESH_CARDS_SHAPES:
+        m = mesh_mod.make_mesh(k=k)
+        ods = xfer.to_device(ods_of(b, k), "chip_smoke.mesh_plane", device=dev)
+        got, want = sharded_eds.sharded_pipeline(m, ods), eds.pipeline_batched(ods, dev)
+        require(all(torch.equal(g, w) for g, w in zip(got, want)), f"k={k} over {m.shape} differs from one card")
+        del got, want
+        out["shapes"].append({"k": k, "blocks": b, **m.shape,
+                              "sharded_ms": all_cards_ms(lambda: sharded_eds.sharded_pipeline(m, ods), 3),
+                              "one_card_ms": all_cards_ms(lambda: eds.pipeline_batched(ods, dev), 3)})
+        emit("mesh_cards_shape", **out["shapes"][-1])
+    k_auto, one_card = mesh_engine.DEFAULT_MESH_MIN_K, mesh_mod.Mesh(((dev,),))
+    require(mesh_engine.mesh_active_for(k_auto, None, dev) and not mesh_engine.mesh_active_for(k_auto // 2, None, dev),
+            f"the auto rule does not shard exactly the squares of k >= {k_auto} over the cards")
+    ods = ods_of(1, k_auto)[0]
+    s0 = telemetry.snapshot()["counters"].get("mesh.batch_shards", 0)
+    entry = edscache.compute_entry(ods, dev)
+    one = edscache.compute_entry(ods, dev, mesh=one_card)
+    require(isinstance(entry, edscache.DeviceEntry) and entry.data_root == one.data_root and entry.dah == one.dah,
+            "the auto rule's entry differs from one card's")
+    eds_np = np.asarray(one.eds.squares)
+    present = np.ones(eds_np.shape[:2], dtype=bool)
+    present[:, 1::2] = False
+    damaged = eds_np.copy()
+    damaged[~present] = 0
+    fixed = repair.repair_eds(damaged, present, list(one.dah.row_roots), list(one.dah.col_roots), device=dev)
+    out["repair_batch_shards"] = telemetry.snapshot()["counters"].get("mesh.batch_shards", 0) - s0
+    require(np.array_equal(fixed, eds_np) and out["repair_batch_shards"] > 0,
+            "the auto rule's repair differs or did not shard")
+    del eds_np, damaged, fixed, entry, one
+    batch = ods_of(2, k_auto)
+    real, dispatches = sharded_eds.sharded_pipeline, []
+
+    def counting(m, ods_batch):
+        dispatches.append(m.shape)
+        return real(m, ods_batch)
+
+    sharded_eds.sharded_pipeline = counting
+    try:
+        entries = mesh_engine.compute_entries_batched(batch, device=dev)
+    finally:
+        sharded_eds.sharded_pipeline = real
+    want = mesh_engine.compute_entries_batched(batch, mesh=one_card)
+    out["batched_on"] = sorted({str(e.device) for e in entries})
+    out["batched_dispatches"] = dispatches
+    require(len(dispatches) == 1 and dispatches[0][mesh_mod.SEQ_AXIS] >= 2,
+            f"the auto rule's batched dispatch did not shard: {dispatches}")
+    require(out["batched_on"] == [str(mesh_engine.card_mesh().lead)],
+            f"the batched entries are on {out['batched_on']}, not on the lead card")
+    require(all(e.data_root == w.data_root and e.dah == w.dah for e, w in zip(entries, want)),
+            "the auto rule's batched entries' roots differ from one card's")
+    emit("mesh_cards", **out)
+    return out
+
+
+def mesh_plane(dev: torch.device, honest_raws: list[bytes]) -> dict:
+    """The mesh plane on the card: the sharded pipeline on meshes of
+    [cuda:0] * n against the one-card pipeline, with K1 and K2 pinned per
+    dispatch; the auto rule (no mesh on one card); compute_entry through a
+    mesh (proofs, residency, repair); a mesh App's heights against a
+    one-card App's; mesh streaming; the two-host gloo dryrun on cuda.
+    Returns the launch counts of the counted runs."""
+    from celestia_app_tpu_torch.parallel import mesh as mesh_mod
+    from celestia_app_tpu_torch.parallel import sharded_eds
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    counts = {"sha256_compress": 0, "rs_extend_lines": 0}
+    if cards == 1:
+        require(all(mesh_engine.mesh_for(k) is None for k in (1, 2, 128, 256, 512)),
+                "mesh_for found a mesh on a one-card host")
+        require(mesh_engine.card_mesh() is None and not mesh_engine.mesh_active_for(512, None, dev),
+                "the auto rule shards on one card")
+    rng = np.random.default_rng(SEED + 90)
+
+    def ods_batch(k: int, b: int) -> torch.Tensor:
+        ods = rng.integers(0, 256, size=(b, k, k, appconsts.SHARE_SIZE), dtype=np.uint8)
+        ods[..., :29] = 0
+        ods[..., 28] = 7
+        return xfer.to_device(ods, "chip_smoke.mesh_plane", device=dev)
+
+    shapes = []
+    for k, n_data, n_seq, b in MESH_SHAPES:
+        m = mesh_mod.Mesh(((dev,) * n_seq,) * n_data)
+        ods = ods_batch(k, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        got = sharded_eds.sharded_pipeline(m, ods)
+        torch.cuda.synchronize()
+        launched = read_counts()
+        sharded_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        want_launches = mesh_launches(k, n_data * n_seq)
+        require(launched == want_launches, f"k={k} ({n_data}, {n_seq}) launches {launched} != {want_launches}")
+        add_counts(counts, launched)
+        torch.cuda.reset_peak_memory_stats()
+        want = eds.pipeline_batched(ods, dev)
+        torch.cuda.synchronize()
+        one_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        for name, g, w in zip(("eds", "row_roots", "col_roots", "data_roots"), got, want):
+            require(torch.equal(g, w), f"k={k} ({n_data}, {n_seq}) {name} differ from the one-card pipeline")
+        del got, want
+        reps = 5 if k <= 128 else 2
+        sharded_ms = cuda_ms(lambda: sharded_eds.sharded_pipeline(m, ods), reps, warmup=1)
+        one_ms = cuda_ms(lambda: eds.pipeline_batched(ods, dev), reps, warmup=1)
+        shapes.append({"k": k, "data": n_data, "seq": n_seq, "blocks": b, "launches": launched,
+                       "sharded_ms": sharded_ms, "one_card_ms": one_ms, "sharded_over_one": sharded_ms / one_ms,
+                       "sharded_peak_mib": sharded_mib, "one_card_peak_mib": one_mib})
+        emit("mesh_shape", **shapes[-1])
+        del ods
+        torch.cuda.empty_cache()
+
+    peers = mesh_over_cards(dev) if cards > 1 else None
+
+    # compute_entry through a mesh at k = 256: proofs, residency, repair
+    m4 = mesh_mod.Mesh(((dev,) * MESH_SHARDS,))
+    txs, pfbs = big_block(SEED + 91, dict(BIG_BLOCKS)[MESH_ENTRY_K])
+    sq = square.build(txs, pfbs, BIG_SQUARE_MAX, appconsts.SUBTREE_ROOT_THRESHOLD)
+    require(sq.size == MESH_ENTRY_K, f"the mesh block built k={sq.size}")
+    ods = dah.shares_to_ods(sq.share_bytes())
+    reset_counts()
+    entry = edscache.compute_entry(ods, dev, mesh=m4)
+    torch.cuda.synchronize()
+    entry_launches = read_counts()
+    require(isinstance(entry, edscache.DeviceEntry), "compute_entry through the mesh gave a host entry")
+    require(entry_launches == mesh_launches(MESH_ENTRY_K, MESH_SHARDS), f"entry launches {entry_launches}")
+    add_counts(counts, entry_launches)
+    one = edscache.compute_entry(ods, dev)
+    require(entry.data_root == one.data_root and entry.dah == one.dah, "the mesh entry's commitments differ")
+    x0 = edscache.crossings()["host_crossings"]
+    reset_counts()
+    entry.warm()
+    torch.cuda.synchronize()
+    add_counts(counts, read_counts())
+    require(edscache.crossings()["host_crossings"] == x0, "warming the mesh entry crossed to the host")
+    prover, one_prover = entry.get_prover(), one.get_prover(device=dev)
+    cells = [(0, 0), (MESH_ENTRY_K - 1, MESH_ENTRY_K), (2 * MESH_ENTRY_K - 1, 3)]
+    require(all(same_proof(prover.prove_cell(r, c), one_prover.prove_cell(r, c)) for r, c in cells),
+            "a share proof of the mesh entry differs")
+    ns = pfbs[0].blobs[0].namespace.raw
+    reset_counts()
+    (nd,) = namespace_device.get_namespace_data_batched(entry, [ns], device=dev)
+    add_counts(counts, read_counts())
+    (want_nd,) = namespace_device.get_namespace_data_batched(one_prover, [ns], device=dev)
+    require(nd == want_nd and nd.shares and namespace_data.verify_namespace_data(entry.dah, ns, nd),
+            "the namespace proof of the mesh entry differs or does not verify")
+
+    eds_np = np.asarray(one.eds.squares)
+    present = np.ones(eds_np.shape[:2], dtype=bool)
+    present[:, 1::2] = False  # half the columns withheld
+    damaged = eds_np.copy()
+    damaged[~present] = 0
+    s0 = telemetry.snapshot()["counters"].get("mesh.batch_shards", 0)
+    reset_counts()
+    fixed, repair_s = timed(lambda: repair.repair_eds(damaged, present, list(one.dah.row_roots),
+                                                      list(one.dah.col_roots), device=dev, mesh=m4))
+    repair_launches = read_counts()
+    add_counts(counts, repair_launches)
+    shards = telemetry.snapshot()["counters"].get("mesh.batch_shards", 0) - s0
+    require(np.array_equal(fixed, eds_np), "the mesh-sharded repair differs from the square")
+    log2_2k = int(math.log2(2 * MESH_ENTRY_K))
+    want_repair = {"sha256_compress": 2 * MESH_SHARDS * (1 + log2_2k), "rs_extend_lines": 0}
+    require(repair_launches == want_repair and shards >= 4,
+            f"repair launches {repair_launches} != {want_repair}, {shards} batch shards")
+    del eds_np, damaged, fixed, entry, one, prover, one_prover
+
+    # a mesh App's heights against a one-card App's
+    reset_counts()
+    mesh_run = mesh_app_heights(dev, m4, honest_raws)
+    add_counts(counts, read_counts())
+    one_run = mesh_app_heights(dev, None, honest_raws)
+    require(mesh_run["hashes"] == one_run["hashes"] and mesh_run["app_hash"] == one_run["app_hash"],
+            "the mesh App's blocks differ from the one-card App's")
+    require(any(d["k"] == MESH_ENTRY_K and d["seq"] == MESH_SHARDS for d in mesh_run["dispatches"])
+            and (cards > 1 or not one_run["dispatches"]), f"mesh App dispatches {mesh_run['dispatches']}")
+    require(mesh_run["crossings"] == 0, f"the mesh App's produce path crossed {mesh_run['crossings']} times")
+
+    # mesh streaming at k = 256
+    reset_counts()
+    stream = streaming.bench_stream_mesh(k=MESH_ENTRY_K, n_batches=MESH_STREAM_BATCHES, n_devices=MESH_SHARDS,
+                                         devices=[dev] * MESH_SHARDS)
+    stream_launches = read_counts()
+    require(stream_launches == {n: (MESH_STREAM_BATCHES + 1) * c for n, c in
+                                mesh_launches(MESH_ENTRY_K, MESH_SHARDS).items()},
+            f"streaming launches {stream_launches}")
+    add_counts(counts, stream_launches)
+    layouts = [streaming._synthetic_layout(MESH_ENTRY_K, i)[None] for i in range(MESH_STREAM_BATCHES)]
+    stream_profile = device_profile(
+        "mesh_stream_profile", lambda: streaming.stream_blocks_mesh(lambda i: layouts[i], MESH_STREAM_BATCHES,
+                                                                     m4, MESH_ENTRY_K),
+        stream["elapsed_s"] * 1e3, reps=1)
+
+    # two hosts over gloo, each with two shards on this card
+    out, dryrun_s = port_cli("multihost-dryrun", *MESH_MULTIHOST, "--device", "cuda", timeout=300.0)
+    dry = json.loads(out.stdout.strip().splitlines()[-1])
+    require(dry["all_hosts_match_oracle"] is True and torch.device(dry["device"]).type == dev.type,
+            f"multihost dryrun {dry}")
+    k_mh, per_host = 64, 2
+    want_host = mesh_launches(k_mh, per_host)  # each host reduces the whole batch's data roots
+    require(all(h == want_host for h in dry["host_launches"]), f"multihost launches {dry['host_launches']}")
+    for h in dry["host_launches"]:
+        add_counts(counts, h)
+
+    emit("mesh_plane", device_count=cards, shapes=shapes, peers=peers, entry_launches=entry_launches,
+         repair_launches=repair_launches, repair_s=repair_s, repair_batch_shards=shards,
+         app={"hashes": mesh_run["hashes"], "k": mesh_run["k"], "dispatches": mesh_run["dispatches"],
+              "crossings": mesh_run["crossings"]},
+         stream={"blocks_per_s": stream["value"], "blocks": stream["blocks"], "mesh": stream["mesh"],
+                 "card_idle_share": stream_profile["idle_share"]},
+         multihost={k: dry[k] for k in ("global_devices", "mesh", "device", "pipeline_s", "exchanged_bytes",
+                                        "host_launches", "all_hosts_match_oracle")}, multihost_s=dryrun_s,
+         launches=counts, phase_s=time.perf_counter() - t_phase)
     return counts
 
 
@@ -4635,6 +4967,7 @@ def main() -> int:
     by_path["network_plane"], by_path["light_plane"] = network_plane(dev, adm["honest_raws"])
     by_path["scenario_plane"] = scenario_plane(dev)
     by_path["cli"] = cli_plane(dev)
+    by_path["mesh_plane"] = mesh_plane(dev, adm["honest_raws"])
     codec_counts = codec_plane(dev, main)
     by_path["codec_plane"] = {name: sum(c[name] for c in codec_counts.values())
                               for name in ("sha256_compress", "rs_extend_lines")}

@@ -22,6 +22,7 @@ from celestia_app_tpu.da import namespace_device as jax_namespace_device
 from celestia_app_tpu.da import square as jax_square
 from celestia_app_tpu_torch.da import dah, eds, edscache, namespace_device, proof_device, square
 from celestia_app_tpu_torch.ops import merkle, rs, rs_kernel, sha256, sha256_kernel
+from celestia_app_tpu_torch.parallel import mesh as mesh_mod
 from celestia_app_tpu_torch.parallel import mesh_engine
 from celestia_app_tpu_torch.utils import telemetry
 from test_torch_proof import seeded_block
@@ -188,10 +189,13 @@ def test_compute_entries_batched(k, monkeypatch):
 
 
 def test_compute_entries_batched_engines():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        mesh_engine.compute_entries_batched(batch_of(2, 2, 0), engine="mesh", device="cpu")
-    with pytest.raises(ValueError, match="engine"):
-        mesh_engine.compute_entries_batched(batch_of(2, 2, 0), engine="host", device="cpu")
+    # no mesh, and a mesh of one device (the reference's mesh engine on
+    # one device), run the one-device program; a mesh of two CPU shards
+    # runs the sharded pipeline: the same roots
+    want = [bytes(eds.pipeline(o, device="cpu")[3].numpy()) for o in batch_of(2, 2, 0)]
+    for mesh in (None, mesh_mod.make_mesh(devices=["cpu"]), mesh_mod.make_mesh(2, k=2, devices=["cpu"] * 2)):
+        entries = mesh_engine.compute_entries_batched(batch_of(2, 2, 0), device="cpu", mesh=mesh)
+        assert [e.data_root for e in entries] == want
     entries = mesh_engine.compute_entries_batched(torch.from_numpy(batch_of(1, 2, 1)), device="cpu")
     assert [e.data_root for e in entries] == [
         bytes(eds.pipeline(o, device="cpu")[3].numpy()) for o in batch_of(1, 2, 1)]

@@ -352,6 +352,8 @@ def test_the_command_set_is_the_reference_minus_the_deferred(monkeypatch):
     ref_cmds = _commands(_parser_of(ref_cli, monkeypatch))
     port_cmds = _commands(_parser_of(cli, monkeypatch))
     assert set(cli.DEFERRED) <= set(ref_cmds)
+    assert cli.DEFERRED == ("relayer", "analyze")
+    assert {"multihost-worker", "multihost-dryrun"} <= set(port_cmds)
     assert set(port_cmds) == set(ref_cmds) - set(cli.DEFERRED)
     for name, parser in port_cmds.items():
         flags = {opt for a in parser._actions for opt in a.option_strings}
@@ -392,3 +394,35 @@ def test_without_a_card_every_command_raises_unless_asked_for_the_cpu(tmp_path):
     json.dump(cfg, open(cfg_path, "w"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["status", "--home", home])
+
+
+def test_device_mesh_is_the_card_with_the_mesh_plane(tmp_path, monkeypatch):
+    """``--device mesh`` (the reference's ``--engine mesh``) needs a card,
+    runs on it, and gives the App a mesh over every visible card, none on a
+    one-card host; ``init`` records it."""
+    from celestia_app_tpu_torch.parallel import mesh as mesh_mod
+
+    assert cli._torch_device("mesh") == "cuda" and cli._torch_device("cpu") == "cpu"
+    assert cli._mesh_of("cpu") is None
+    monkeypatch.setattr(mesh_mod, "visible_cards", lambda: [torch.device("cpu")] * 2)
+    assert cli._mesh_of("mesh").shape == {"data": 1, "seq": 2}
+    monkeypatch.setattr(mesh_mod, "visible_cards", lambda: [torch.device("cpu")])
+    assert cli._mesh_of("mesh") is None
+    home = str(tmp_path / "home")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device for --device mesh"):
+            cli.main(["init", "--home", home, "--device", "mesh"])
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)  # resolve only; init touches no card
+    assert cli.main(["init", "--home", home, "--chain-id", CHAIN, "--device", "mesh"]) == 0
+    assert json.load(open(os.path.join(home, "config.json")))["device"] == "mesh"
+
+
+def test_multihost_dryrun_command():
+    """``multihost-dryrun`` on the CPU: two gloo worker processes of two
+    seq shards each, every host matching the one-device pipeline."""
+    rc, out, err = run("port", ["multihost-dryrun", "--processes", "2", "--devices-per-host", "2",
+                                "--k", "4", "--batch", "2"])
+    assert rc == 0, err[-2000:]
+    doc = json.loads(out.strip().splitlines()[-1])
+    assert (doc["global_devices"], doc["mesh"], doc["device"]) == (4, {"data": 1, "seq": 4}, "cpu")
+    assert doc["all_hosts_match_oracle"] is True

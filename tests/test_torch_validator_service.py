@@ -62,6 +62,8 @@ class Pair:
 
     def __init__(self, tmp):
         self.pkgs = {w: pkg(w) for w in PACKAGES}
+        for p in self.pkgs.values():  # /faults reports what earlier tests in this process fired
+            p.faults.reset()
         self.genesis = genesis_for([self.pkgs["port"].PrivateKey.from_seed(b"svc-val")])
         self.nodes, self.svcs, self.urls = {}, {}, {}
         for w, p in self.pkgs.items():

@@ -4,7 +4,9 @@ package's, site by site, on the CPU.
 Each workload runs through both packages: a k = 4 `eds_axis_roots`, a
 batched `repair_eds` at k = 4 with half the columns missing, a namespace
 read (its prover's level pass and the batched search), a CMT and a PCMT
-encode of a k = 4 ODS, and `stream_blocks` over two k = 4 blocks. The set
+encode of a k = 4 ODS, `stream_blocks` over two k = 4 blocks, and the
+one-device batched dispatch (`mesh_engine.compute_entries_batched`) of
+two k = 4 squares. The set
 of (site, direction) pairs each package's ledger records must be the
 same, with one named exception: the CMT and PCMT encodes hash the coded
 base layer where the encode left it, on the device, so the port has no
@@ -32,12 +34,13 @@ from celestia_app_tpu.da import pcmt as ref_pcmt
 from celestia_app_tpu.da import proof_device as ref_proof_device
 from celestia_app_tpu.da import repair as ref_repair
 from celestia_app_tpu.ops import nmt as ref_nmt
+from celestia_app_tpu.parallel import mesh_engine as ref_mesh_engine
 from celestia_app_tpu.parallel import streaming as ref_streaming
 from celestia_app_tpu.utils import telemetry as ref_telemetry
 from celestia_app_tpu_torch.da import cmt, dah, namespace_device, pcmt, proof_device, repair
 from celestia_app_tpu_torch.obs import xfer
 from celestia_app_tpu_torch.ops import nmt
-from celestia_app_tpu_torch.parallel import streaming
+from celestia_app_tpu_torch.parallel import mesh_engine, streaming
 from celestia_app_tpu_torch.utils import telemetry
 
 from test_torch_obs import FakeCuda
@@ -91,6 +94,7 @@ def workloads(block) -> dict:
     full = np.asarray(eds.squares)
     damaged, present = half_columns_missing(full)
     queries = [ods[0, 0, :29].tobytes(), bytes(28) + b"\x05"]
+    batch = np.stack([ods, square_of(K, 2)])
 
     def layout(i):
         return ref_streaming._synthetic_layout(K, i)
@@ -113,6 +117,9 @@ def workloads(block) -> dict:
                         lambda: pcmt.build_layers(ods, device="cpu")),
         "stream_blocks": (lambda: ref_streaming.stream_blocks(layout, 2, K),
                           lambda: streaming.stream_blocks(layout, 2, K, device="cpu")),
+        "batched_dispatch": (
+            lambda: [e.data_root for e in ref_mesh_engine.compute_entries_batched(batch)],
+            lambda: [e.data_root for e in mesh_engine.compute_entries_batched(batch, device="cpu")]),
     }
 
 
@@ -152,6 +159,10 @@ PORT_COUNTS = {
     # of the pipeline down, the EDS included: 68,480 bytes)
     "stream_blocks": {("streaming.dispatch", "h2d"): (2, 2 * 4 * 4 * 512),
                       ("streaming.fetch", "d2h"): (2, 2 * 32)},
+    # the batch up once, the commitments of both blocks down once (row and
+    # column roots and data roots); the squares stay on the device
+    "batched_dispatch": {("mesh.batched_dispatch", "h2d"): (1, 2 * 4 * 4 * 512),
+                         ("mesh.batched_commitments", "d2h"): (1, 2 * (2 * 8 * 90 + 32))},
 }
 
 
@@ -168,10 +179,10 @@ def test_sites_match_the_reference(block, name):
 def test_the_workloads_agree(block):
     """The ledgers are compared over workloads that give the same bytes."""
     calls = workloads(block)
-    for name in ("axis_roots", "repair", "stream_blocks"):
+    for name in ("axis_roots", "repair", "stream_blocks", "batched_dispatch"):
         ref_call, port_call = calls[name]
         got, want = port_call(), ref_call()
-        if name == "stream_blocks":
+        if name in ("stream_blocks", "batched_dispatch"):
             assert got == want
         else:
             np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

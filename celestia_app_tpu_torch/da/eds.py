@@ -9,7 +9,9 @@ Port of celestia_app_tpu/da/eds.py:pipeline_fn. For one (k, k, 512) square:
   3. the RFC-6962 Merkle root over rowRoots || colRoots, the data root
      (pkg/da/data_availability_header.go:100-107).
 
-Everything stays on the device between stages. `pipeline_batched` runs
+Everything stays on the device between stages; while a profiler records,
+each stage sits in a row-less range (obs/spans.stage): ``eds.extend``,
+``eds.leaves``, ``eds.trees``, ``eds.data_root``. `pipeline_batched` runs
 B squares through the same launches (the port of jitted_pipeline_batched),
 and `roots_only` / `roots_only_batched` are the same passes for a caller
 that needs the commitments and not the square.
@@ -22,7 +24,7 @@ import torch
 
 from celestia_app_tpu_torch import appconsts
 from celestia_app_tpu_torch import device as device_mod
-from celestia_app_tpu_torch.obs import xfer
+from celestia_app_tpu_torch.obs import spans, xfer
 from celestia_app_tpu_torch.ops import merkle, nmt, rs
 
 NS = appconsts.NAMESPACE_SIZE
@@ -59,22 +61,26 @@ def _pipeline(ods: torch.Tensor):
     b, k = ods.shape[0], ods.shape[1]
     if ods.dtype != torch.uint8 or ods.shape[1:] != (k, k, appconsts.SHARE_SIZE):
         raise ValueError(f"ODS must be (k, k, 512) uint8, got {tuple(ods.shape[1:])} {ods.dtype}")
-    eds = rs.extend_square_fn(k, ods.device)(ods)
+    with spans.stage("eds.extend"):
+        eds = rs.extend_square_fn(k, ods.device)(ods)
     # Leaf (r, c) has the SAME preimage (0x00 || ns || share) in row tree
     # r and column tree c: hash the 2k x 2k leaf grid once and transpose
     # the digests for the column trees. One 4k-tree reduction per square,
     # all B squares in one, then covers both orientations, so each level's
     # SHA-256 launch sees every tree's messages.
     two_k = 2 * k
-    mins, maxs, vs = nmt.leaf_nodes(_axis_leaf_ns(eds, k).reshape(b * two_k, two_k, NS),
-                                    eds.reshape(b * two_k, two_k, appconsts.SHARE_SIZE))
+    with spans.stage("eds.leaves"):
+        mins, maxs, vs = nmt.leaf_nodes(_axis_leaf_ns(eds, k).reshape(b * two_k, two_k, NS),
+                                        eds.reshape(b * two_k, two_k, appconsts.SHARE_SIZE))
 
     def both(t: torch.Tensor) -> torch.Tensor:  # (B*2k, 2k, .) -> (B*4k, 2k, .)
         t = t.reshape(b, two_k, two_k, -1)
         return torch.cat([t, t.transpose(1, 2)], dim=1).reshape(2 * b * two_k, two_k, -1)
 
-    axis_roots = nmt.roots_from_leaf_nodes(both(mins), both(maxs), both(vs)).reshape(b, 2 * two_k, -1)
-    data_roots = merkle.merkle_root_pow2(axis_roots)  # (B, 32)
+    with spans.stage("eds.trees"):
+        axis_roots = nmt.roots_from_leaf_nodes(both(mins), both(maxs), both(vs)).reshape(b, 2 * two_k, -1)
+    with spans.stage("eds.data_root"):
+        data_roots = merkle.merkle_root_pow2(axis_roots)  # (B, 32)
     return eds, axis_roots[:, :two_k], axis_roots[:, two_k:], data_roots
 
 

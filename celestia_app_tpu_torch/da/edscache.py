@@ -309,25 +309,29 @@ def compute_entry(ods: np.ndarray, device=None, scheme: str = codec_mod.RS2D_NAM
     auto rule: squares of k >= mesh_engine.DEFAULT_MESH_MIN_K on a card
     take the mesh when two or more cards are visible. A square the mesh
     cannot shard (k = 1) takes the one-device path; a mesh failure
-    raises."""
+    raises. While a profiler records, the rs2d path sits in an
+    ``edscache.compute_entry`` range and the host's DAH and entry in an
+    ``entry.assemble`` one (obs/spans.stage)."""
     if scheme != codec_mod.RS2D_NAME:
         codec = codec_mod.get(scheme)  # CodecError before the counter moves
         telemetry.incr("da.extend_runs")
         return codec._encode_impl(ods, device)
     telemetry.incr("da.extend_runs")
-    dev = device_mod.resolve(device) if mesh is None else mesh.lead
-    from celestia_app_tpu_torch.parallel import mesh_engine
+    with obs.stage("edscache.compute_entry"):
+        dev = device_mod.resolve(device) if mesh is None else mesh.lead
+        from celestia_app_tpu_torch.parallel import mesh_engine
 
-    if mesh_engine.mesh_active_for(int(ods.shape[0]), mesh, dev):
-        return mesh_engine.compute_entry_mesh(ods, mesh)
-    eds, rows, cols, root = device_profile.instrument(
-        "eds.pipeline", lambda: eds_mod.pipeline(ods, dev), key=int(ods.shape[0]), device=dev)
-    eds_h, rows_h, cols_h, root_h = xfer.to_host((eds, rows, cols, root), "edscache.compute_entry")
-    dah = DataAvailabilityHeader(
-        row_roots=tuple(bytes(r) for r in rows_h),
-        col_roots=tuple(bytes(c) for c in cols_h),
-    )
-    return EdsCacheEntry(ExtendedDataSquare(eds_h), dah, bytes(root_h))
+        if mesh_engine.mesh_active_for(int(ods.shape[0]), mesh, dev):
+            return mesh_engine.compute_entry_mesh(ods, mesh)
+        eds, rows, cols, root = device_profile.instrument(
+            "eds.pipeline", lambda: eds_mod.pipeline(ods, dev), key=int(ods.shape[0]), device=dev)
+        eds_h, rows_h, cols_h, root_h = xfer.to_host((eds, rows, cols, root), "edscache.compute_entry")
+        with obs.stage("entry.assemble"):
+            dah = DataAvailabilityHeader(
+                row_roots=tuple(bytes(r) for r in rows_h),
+                col_roots=tuple(bytes(c) for c in cols_h),
+            )
+            return EdsCacheEntry(ExtendedDataSquare(eds_h), dah, bytes(root_h))
 
 
 class EdsCache:

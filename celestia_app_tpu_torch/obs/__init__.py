@@ -6,7 +6,13 @@ Port of celestia_app_tpu/obs. Five sub-modules, one import surface
 - ``obs.spans`` — context-manager span API over the columnar TraceTables
   with DETERMINISTIC per-height trace ids (``trace_id_for(chain_id, h)``)
   so proposer, followers, and DAS light nodes correlate without clock
-  sync; HTTP propagation via the ``X-Celestia-Trace`` header.
+  sync; HTTP propagation via the ``X-Celestia-Trace`` header. While a
+  ``torch.profiler`` records, every span also opens a
+  ``record_function`` range of its name, so it lands on the device
+  trace's clock; ``obs.stage(name, *index)`` is such a range with no row,
+  for code that only enqueues device work (a row would time the enqueue,
+  not the device): the encode-and-commit path's ``eds.*``, ``sharded.*``,
+  entry, ``entry.assemble`` and ``xfer.*`` ranges.
 - ``obs.log`` — the leveled structured stderr logger library modules use
   instead of calling ``print`` (lint-enforced).
 - ``obs.device_profile`` — the compile-vs-execute split of the kernel
@@ -46,6 +52,7 @@ from celestia_app_tpu_torch.obs.spans import (  # noqa: F401
     serve_metrics,
     set_enabled,
     span,
+    stage,
     trace_id_for,
 )
 from celestia_app_tpu_torch.obs.xfer import (  # noqa: F401

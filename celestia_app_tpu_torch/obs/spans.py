@@ -30,6 +30,38 @@ node?".  Spans close that gap with three deliberate choices:
 Recording is on by default and gated by `set_enabled`: a disabled span
 is a shared no-op object, so the hot path pays one dict lookup and one
 truthiness check.
+
+**On the device trace's clock.** A span's row is timed with the host's
+clocks, which are not ``torch.profiler``'s, so while a profiler records
+(``torch.autograd.profiler._is_profiler_enabled``, one attribute read) a
+span also opens a ``torch.profiler.record_function`` range of its name:
+it lands on the device trace as a ``user_annotation`` on the trace's own
+clock, beside the kernels it launched, in a benchmark's trace and in a
+``/debug/profile`` capture alike. With no profiler recording nothing
+else happens.
+
+**Stages.** `stage(name, *index)` is a range for code that only enqueues
+device work. It writes no row: its duration would be enqueue time, which
+reads as device time and is not. The work under a stage is what the
+trace puts inside its range. Off (no profiler recording, or recording
+off) it is the shared `NOOP`; the name ``name[i,j]`` of an indexed stage
+is built only when the range is opened. The encode-and-commit path
+carries these ranges (README.md, the port's observability plane):
+
+- entries: ``edscache.compute_entry``, ``mesh.compute_entries_batched``,
+  ``mesh.compute_entry_mesh``, and in each ``entry.assemble`` (the DAH
+  and the entries built from the host roots);
+- one card (``da/eds._pipeline``): ``eds.extend``, ``eds.leaves``,
+  ``eds.trees``, ``eds.data_root``;
+- a mesh (``parallel/sharded_eds.sharded_pipeline``): ``sharded.input``,
+  ``sharded.row_pass[d,s]``, ``sharded.transpose1``,
+  ``sharded.column_pass[d,s]``, ``sharded.transpose2``,
+  ``sharded.row_roots[d,s]``, ``sharded.gather[d,s]``,
+  ``sharded.data_root``;
+- crossings (``obs/xfer``): ``xfer.h2d:<site>``, ``xfer.d2h:<site>``.
+
+No switch and no environment variable gates them: the profiler's own
+state and `set_enabled` do.
 """
 
 from __future__ import annotations
@@ -39,6 +71,8 @@ import itertools
 import os
 import threading
 import time
+
+import torch
 
 from celestia_app_tpu_torch.utils import telemetry
 
@@ -54,6 +88,9 @@ _SPAN_PREFIX = os.urandom(3).hex()
 _counter = itertools.count(1)
 
 _enabled: bool | None = None
+
+# the module whose `_is_profiler_enabled` flag says a profiler records
+_profiler = torch.autograd.profiler
 
 
 def enabled() -> bool:
@@ -89,7 +126,7 @@ class Span:
     attributes before exit; the row is written on __exit__."""
 
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "sink",
-                 "attrs", "start_unix", "_t0")
+                 "attrs", "start_unix", "_t0", "_range")
 
     def __init__(self, name: str, trace_id: str, parent_id: str | None,
                  sink, attrs: dict):
@@ -106,12 +143,19 @@ class Span:
 
     def __enter__(self) -> "Span":
         _stack().append(self)
+        self._range = None
+        if _profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
         self.start_unix = time.time()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
         dur_ms = (time.perf_counter() - self._t0) * 1e3
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         st = _stack()
         if st and st[-1] is self:
             st.pop()
@@ -154,6 +198,21 @@ class _NoopSpan:
 
 
 NOOP = _NoopSpan()
+
+
+def stage(name: str, *index, site: str | None = None):
+    """A row-less range around code that enqueues device work: a
+    ``torch.profiler.record_function`` range named `name`, ``name[i,j]``
+    for an `index` (a shard's data and seq index) or ``name:<site>`` for
+    a `site`, while a profiler records and span recording is on; else the
+    shared `NOOP`, with no name built."""
+    if not (_profiler._is_profiler_enabled and enabled()):
+        return NOOP
+    if index:
+        name = f"{name}[{','.join(map(str, index))}]"
+    if site is not None:
+        name = f"{name}:{site}"
+    return torch.profiler.record_function(name)
 
 
 def span(name: str, *, traces=None, trace_id: str | None = None, **attrs):

@@ -15,6 +15,9 @@ on the node's path goes through two helpers:
 - **Ledger rows.** When span recording is on and a span is active, each
   transfer also writes one row to the ``xfer`` trace table of the span's
   sink, stamped with the span's trace id.
+- **Ranges.** While a profiler records, the copy itself sits in a
+  row-less ``xfer.h2d:<site>`` / ``xfer.d2h:<site>`` range
+  (`spans.stage`), nested under whatever stage is open.
 - **A pinnable residency claim.** `no_implicit_transfers()` makes any
   device→host crossing the helpers did NOT mediate an error. Torch has
   no transfer guard, so the context patches ``Tensor.cpu``,
@@ -38,6 +41,7 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from celestia_app_tpu_torch.obs import spans
 from celestia_app_tpu_torch.utils import telemetry
 
 XFER_TABLE = "xfer"
@@ -118,8 +122,6 @@ def _account(direction: str, site: str, nbytes: int, t0: float) -> None:
     with _totals_lock:
         _totals[f"{direction}_bytes"] += nbytes
         _totals[f"{direction}_calls"] += 1
-    from celestia_app_tpu_torch.obs import spans
-
     ctx = spans.capture() if spans.enabled() else None
     if ctx is None:
         return
@@ -157,7 +159,7 @@ def to_device(value, site: str, *, device):
         return a.to(dev)  # xfer: ledger
 
     t0 = telemetry.start_timer()
-    with _explicit():
+    with _explicit(), spans.stage("xfer.h2d", site=site):
         out = _map(value, one)
     _account("h2d", site, nbytes_of(value), t0)
     return out
@@ -171,7 +173,7 @@ def to_host(value, site: str):
         return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)  # xfer: ledger
 
     t0 = telemetry.start_timer()
-    with _explicit():
+    with _explicit(), spans.stage("xfer.d2h", site=site):
         out = _map(value, one)
     _account("d2h", site, nbytes_of(out), t0)
     return out

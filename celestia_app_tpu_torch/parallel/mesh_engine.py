@@ -34,6 +34,11 @@ block dispatch. The port of celestia_app_tpu/parallel/mesh_engine.py.
   its own device (K2 and K1 per part) and `gather` the results on the
   caller's device, so the bytes are those of one device by construction.
 
+Ranges (obs/spans.stage, row-less, while a profiler records): each
+entry function's whole call (``mesh.compute_entries_batched``,
+``mesh.compute_entry_mesh``) and, inside it, ``entry.assemble``: the DAHs
+and entries built from the host roots after the commitments' download.
+
 Telemetry (the reference's names): ``da.extend_runs``,
 ``mesh.batched_dispatches``, ``mesh.batched_blocks``, ``mesh.batch_shards``
 and the ``mesh.batched_dispatch`` timer; transfer-ledger sites
@@ -50,7 +55,7 @@ from celestia_app_tpu_torch import device as device_mod
 from celestia_app_tpu_torch.da import eds as eds_mod
 from celestia_app_tpu_torch.da import edscache
 from celestia_app_tpu_torch.da.dah import DataAvailabilityHeader
-from celestia_app_tpu_torch.obs import xfer
+from celestia_app_tpu_torch.obs import spans, xfer
 from celestia_app_tpu_torch.parallel import mesh as mesh_mod
 from celestia_app_tpu_torch.parallel import sharded_eds
 from celestia_app_tpu_torch.utils import telemetry
@@ -162,13 +167,15 @@ def compute_entry_mesh(ods, mesh: mesh_mod.Mesh | None = None) -> edscache.Devic
     mesh `mesh_for(k)` cuts from `mesh`'s devices (default: the visible
     cards). The EDS is assembled on the lead device; the roots and the
     data root come to the host. Raises where the square cannot shard."""
-    k = int(ods.shape[0])
-    m = mesh_for(k, None if mesh is None else mesh.flat)
-    if m is None:
-        raise RuntimeError(f"the mesh engine needs a seq extent >= 2 that divides k = {k}")
-    eds, rows, cols, roots = sharded_eds.sharded_pipeline(m, ods[None])
-    rows_h, cols_h, root_h = xfer.to_host((rows[0], cols[0], roots[0]), "mesh.entry_commitments")
-    return _device_entry(eds[0], rows_h, cols_h, root_h)
+    with spans.stage("mesh.compute_entry_mesh"):
+        k = int(ods.shape[0])
+        m = mesh_for(k, None if mesh is None else mesh.flat)
+        if m is None:
+            raise RuntimeError(f"the mesh engine needs a seq extent >= 2 that divides k = {k}")
+        eds, rows, cols, roots = sharded_eds.sharded_pipeline(m, ods[None])
+        rows_h, cols_h, root_h = xfer.to_host((rows[0], cols[0], roots[0]), "mesh.entry_commitments")
+        with spans.stage("entry.assemble"):
+            return _device_entry(eds[0], rows_h, cols_h, root_h)
 
 
 def compute_entries_batched(ods_batch, device=None, mesh: mesh_mod.Mesh | None = None
@@ -184,22 +191,24 @@ def compute_entries_batched(ods_batch, device=None, mesh: mesh_mod.Mesh | None =
     DEFAULT_MESH_MIN_K and two or more cards). Otherwise the batch runs on
     `device` (the card unless the caller asks for the CPU), or on the
     mesh's lead device, through `da/eds.pipeline_batched`."""
-    b, k = int(ods_batch.shape[0]), int(ods_batch.shape[1])
-    dev = device_mod.resolve(device) if mesh is None else mesh.lead
-    m = mesh_for_batch(k, b, _devices(mesh, dev))
-    t0 = telemetry.start_timer()
-    if m is not None and (mesh is not None or k >= DEFAULT_MESH_MIN_K):
-        eds, rows, cols, roots = sharded_eds.sharded_pipeline(m, ods_batch)
-    else:
-        eds, rows, cols, roots = eds_mod.pipeline_batched(
-            eds_mod.ods_on_device(ods_batch, dev, "mesh.batched_dispatch"), dev)
-    # one host copy for the whole batch's commitments; the squares stay
-    rows_h, cols_h, roots_h = xfer.to_host((rows, cols, roots), "mesh.batched_commitments")
-    telemetry.incr("da.extend_runs", b)
-    telemetry.incr("mesh.batched_dispatches")
-    telemetry.incr("mesh.batched_blocks", b)
-    telemetry.measure_since("mesh.batched_dispatch", t0)
-    return [_device_entry(eds[i], rows_h[i], cols_h[i], roots_h[i]) for i in range(b)]
+    with spans.stage("mesh.compute_entries_batched"):
+        b, k = int(ods_batch.shape[0]), int(ods_batch.shape[1])
+        dev = device_mod.resolve(device) if mesh is None else mesh.lead
+        m = mesh_for_batch(k, b, _devices(mesh, dev))
+        t0 = telemetry.start_timer()
+        if m is not None and (mesh is not None or k >= DEFAULT_MESH_MIN_K):
+            eds, rows, cols, roots = sharded_eds.sharded_pipeline(m, ods_batch)
+        else:
+            eds, rows, cols, roots = eds_mod.pipeline_batched(
+                eds_mod.ods_on_device(ods_batch, dev, "mesh.batched_dispatch"), dev)
+        # one host copy for the whole batch's commitments; the squares stay
+        rows_h, cols_h, roots_h = xfer.to_host((rows, cols, roots), "mesh.batched_commitments")
+        telemetry.incr("da.extend_runs", b)
+        telemetry.incr("mesh.batched_dispatches")
+        telemetry.incr("mesh.batched_blocks", b)
+        telemetry.measure_since("mesh.batched_dispatch", t0)
+        with spans.stage("entry.assemble"):
+            return [_device_entry(eds[i], rows_h[i], cols_h[i], roots_h[i]) for i in range(b)]
 
 
 def _device_entry(eds_dev: torch.Tensor, rows: np.ndarray, cols: np.ndarray, root: np.ndarray

@@ -39,6 +39,15 @@ tree of 1 + log2(4k) on the lead device.
 The result is gathered on the lead device: the EDS (B, 2k, 2k, 512), row
 and column roots (B, 2k, 90) each and data roots (B, 32), byte-equal to
 `da/eds.pipeline_batched` on one device.
+
+While a profiler records, each step sits in a row-less range
+(obs/spans.stage), per shard where the step is: ``sharded.input``,
+``sharded.row_pass[d,s]``, ``sharded.transpose1``,
+``sharded.column_pass[d,s]``, ``sharded.transpose2``,
+``sharded.row_roots[d,s]``, ``sharded.gather[d,s]`` (a shard's three
+copies onto the lead device) and ``sharded.data_root``. So a trace says
+which shard's step the one host thread was launching while the other
+cards waited.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ import numpy as np
 import torch
 
 from celestia_app_tpu_torch import appconsts
-from celestia_app_tpu_torch.obs import xfer
+from celestia_app_tpu_torch.obs import spans, xfer
 from celestia_app_tpu_torch.ops import leopard, merkle, nmt, rs, rs_kernel
 from celestia_app_tpu_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, Mesh
 
@@ -195,26 +204,33 @@ def sharded_pipeline(mesh: Mesh, ods_batch) -> tuple[torch.Tensor, torch.Tensor,
     two_k = 2 * k
     shards = [(d, s) for d in range(n_data) for s in range(n)]
     dev = {(d, s): mesh.devices[d][s] for d, s in shards}
-    slabs = input_slabs(mesh, ods_batch)
+    with spans.stage("sharded.input"):
+        slabs = input_slabs(mesh, ods_batch)
     # 1. row pass: each shard extends its k/n original rows
-    tops = {(d, s): row_pass(slabs[d][s], k) for d, s in shards}
+    tops = {}
+    for d, s in shards:
+        with spans.stage("sharded.row_pass", d, s):
+            tops[d, s] = row_pass(slabs[d][s], k)
     del slabs
 
     # 2. transpose 1: shard s gathers columns [s*c_l, (s+1)*c_l) of all k
     #    original rows, column-major: (B_l, 2k/n cols, 2k, SHARE), rows < k
-    cols = {g: torch.empty((b_l, c_l, two_k, SHARE), dtype=torch.uint8, device=dev[g]) for g in shards}
-    transpose(tops, cols)
+    with spans.stage("sharded.transpose1"):
+        cols = {g: torch.empty((b_l, c_l, two_k, SHARE), dtype=torch.uint8, device=dev[g]) for g in shards}
+        transpose(tops, cols)
     del tops
     # 3, 4. column pass; column leaves hashed once, column roots from them
     col_roots, packed = {}, {}
     for d, s in shards:
-        col_roots[d, s], packed[d, s] = column_pass(cols.pop((d, s)), k, s * c_l)
+        with spans.stage("sharded.column_pass", d, s):
+            col_roots[d, s], packed[d, s] = column_pass(cols.pop((d, s)), k, s * c_l)
 
     # 5. transpose 2: shares and digests packed along the byte axis, so each
     #    pair of shards exchanges one piece; shard s takes rows
     #    [s*c_l, (s+1)*c_l) of every column
-    backs = {g: torch.empty((b_l, c_l, two_k, SHARE + 32), dtype=torch.uint8, device=dev[g]) for g in shards}
-    transpose(packed, backs)
+    with spans.stage("sharded.transpose2"):
+        backs = {g: torch.empty((b_l, c_l, two_k, SHARE + 32), dtype=torch.uint8, device=dev[g]) for g in shards}
+        transpose(packed, backs)
     del packed
     # 6. row roots; the EDS rows and every root gathered on the lead device
     lead = mesh.lead
@@ -224,10 +240,14 @@ def sharded_pipeline(mesh: Mesh, ods_batch) -> tuple[torch.Tensor, torch.Tensor,
     for d, s in shards:
         back = backs.pop((d, s))
         at = (slice(d * b_l, (d + 1) * b_l), slice(s * c_l, (s + 1) * c_l))
-        row_roots[at].copy_(row_roots_of(back, k, s * c_l), non_blocking=True)
-        eds[at].copy_(back[..., :SHARE], non_blocking=True)
-        col_roots_all[at].copy_(col_roots[d, s], non_blocking=True)
+        with spans.stage("sharded.row_roots", d, s):
+            shard_row_roots = row_roots_of(back, k, s * c_l)
+        with spans.stage("sharded.gather", d, s):
+            row_roots[at].copy_(shard_row_roots, non_blocking=True)
+            eds[at].copy_(back[..., :SHARE], non_blocking=True)
+            col_roots_all[at].copy_(col_roots[d, s], non_blocking=True)
 
     # 7. the data roots over rowRoots || colRoots of every square
-    data_roots = merkle.merkle_root_pow2(torch.cat([row_roots, col_roots_all], dim=1))
+    with spans.stage("sharded.data_root"):
+        data_roots = merkle.merkle_root_pow2(torch.cat([row_roots, col_roots_all], dim=1))
     return eds, row_roots, col_roots_all, data_roots

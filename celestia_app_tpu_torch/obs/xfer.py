@@ -28,6 +28,21 @@ on the node's path goes through two helpers:
   thread-local flag). On a host with no card there is no boundary to
   guard: the probe is still installed, and ``obs.xfer_guard_noop`` counts
   that the claim was not exercised.
+- **Pinned downloads.** `to_host` copies a CUDA tensor of
+  `PINNED_MIN_BYTES` or more into page-locked host memory, taken from
+  torch's caching host allocator (`torch.empty(..., pin_memory=True)`),
+  with one queued copy per leaf on the source's current stream and one
+  synchronise per stream after every copy of the call is queued; smaller
+  tensors, CPU tensors and numpy leaves take the plain ``.cpu().numpy()``
+  path (`pinned_download` is the rule). Each returned array owns its
+  block: the array's base is the pinned tensor, and the block goes back
+  to the allocator's cache only when the array is freed; no buffer is
+  shared between two returned arrays. The cache keeps freed blocks for
+  reuse, so the pinned bytes held are the most that callers kept alive at
+  once, each block rounded up to a power of two: in the App, `EdsCache`'s
+  byte cap (1 GiB) plus the height in flight. Counted as
+  ``xfer.d2h_pinned_bytes{site=…}`` / ``xfer.d2h_pinned_calls{site=…}``
+  (a share of ``xfer.d2h_bytes``) and ``d2h_pinned_bytes`` in `totals()`.
 - **The per-block gauge.** The cumulative totals (`totals()`,
   `bytes_crossed()`) let chain/app.py compute a per-commit delta.
 """
@@ -58,10 +73,15 @@ _tls = threading.local()
 _totals_lock = threading.Lock()
 # cumulative process-wide boundary traffic: the source of the per-block
 # delta gauge (chain/app.py reads bytes_crossed() at each commit)
-_totals = {"h2d_bytes": 0, "d2h_bytes": 0, "h2d_calls": 0, "d2h_calls": 0}
+_totals = {"h2d_bytes": 0, "d2h_bytes": 0, "h2d_calls": 0, "d2h_calls": 0, "d2h_pinned_bytes": 0}
+
+# below 1 MiB the host allocator's bookkeeping costs about as much as the copy
+PINNED_MIN_BYTES = 1 << 20
 
 telemetry.set_help("xfer.h2d_bytes", "host->device bytes through the transfer ledger")
 telemetry.set_help("xfer.d2h_bytes", "device->host bytes through the transfer ledger")
+telemetry.set_help("xfer.d2h_pinned_bytes",
+                   "device->host bytes of xfer.d2h_bytes downloaded into page-locked memory")
 telemetry.set_help("xfer.host_bytes_crossed_per_block",
                    "host<->device bytes crossed while committing the last block")
 
@@ -113,15 +133,21 @@ def _explicit():
         _tls.explicit = d
 
 
-def _account(direction: str, site: str, nbytes: int, t0: float) -> None:
+def _account(direction: str, site: str, nbytes: int, t0: float, pinned: int = 0) -> None:
     """Attribute one transfer to `site`: counters, latency histogram and,
-    when a span is active, one ledger row in the span's trace sink."""
+    when a span is active, one ledger row in the span's trace sink.
+    `pinned` is the part of a download's `nbytes` that went to page-locked
+    memory."""
     dur_s = telemetry.measure_since(f"xfer.{direction}", t0, labels={"site": site})
     telemetry.incr(f"xfer.{direction}_bytes", nbytes, labels={"site": site})
     telemetry.incr(f"xfer.{direction}_calls", labels={"site": site})
+    if pinned:
+        telemetry.incr("xfer.d2h_pinned_bytes", pinned, labels={"site": site})
+        telemetry.incr("xfer.d2h_pinned_calls", labels={"site": site})
     with _totals_lock:
         _totals[f"{direction}_bytes"] += nbytes
         _totals[f"{direction}_calls"] += 1
+        _totals["d2h_pinned_bytes"] += pinned
     ctx = spans.capture() if spans.enabled() else None
     if ctx is None:
         return
@@ -165,17 +191,40 @@ def to_device(value, site: str, *, device):
     return out
 
 
+def pinned_download(device_type: str, nbytes: int) -> bool:
+    """Whether `to_host` downloads a tensor on a `device_type` device of
+    `nbytes` bytes into page-locked memory."""
+    return device_type == "cuda" and nbytes >= PINNED_MIN_BYTES
+
+
 def to_host(value, site: str):
     """Copy tensors (or a list/tuple of them) to host numpy arrays,
-    accounted to `site`. Blocks until the producing kernels finish."""
+    accounted to `site`. Blocks until the producing kernels finish. Large
+    CUDA tensors land in page-locked blocks that the returned arrays own
+    (module docstring)."""
+    streams = set()
+    pinned = 0
 
     def one(a):
-        return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)  # xfer: ledger
+        nonlocal pinned
+        if not isinstance(a, torch.Tensor):
+            return np.asarray(a)  # xfer: ledger
+        nbytes = a.numel() * a.element_size()
+        if not pinned_download(a.device.type, nbytes):
+            return a.cpu().numpy()  # xfer: ledger
+        dst = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+        dst.copy_(a, non_blocking=True)
+        streams.add(torch.cuda.current_stream(a.device))
+        pinned += nbytes
+        # a view of the block, which the caller reads only after the synchronise below
+        return dst.numpy()  # xfer: ledger
 
     t0 = telemetry.start_timer()
     with _explicit(), spans.stage("xfer.d2h", site=site):
         out = _map(value, one)
-    _account("d2h", site, nbytes_of(out), t0)
+        for stream in streams:
+            stream.synchronize()
+    _account("d2h", site, nbytes_of(out), t0, pinned)
     return out
 
 

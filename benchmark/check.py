@@ -23,6 +23,11 @@ LIMITS = {
     "data_roots_differ": 0,
     "blocks_unchecked": 0,  # sampled blocks whose outputs could not be read
 }
+# A withheld-square cell's own: of the calls on a sampled block's hand-over
+# with one root altered (traffic.Driver.altered_roots), those the entry
+# answered instead of raising. The EDS comparison cannot see a repair that
+# skips its root verification, since honest hand-overs pass either way.
+HANDOVER_LIMITS = {"altered_roots_accepted": 0}
 
 
 @dataclasses.dataclass
@@ -93,5 +98,5 @@ def total(per_block: list[dict[str, int]]) -> dict[str, int]:
     return out
 
 
-def passed(totals: dict[str, int]) -> bool:
-    return all(totals[name] <= limit for name, limit in LIMITS.items())
+def passed(totals: dict[str, int], limits: dict[str, int] = LIMITS) -> bool:
+    return all(totals[name] <= limit for name, limit in limits.items())

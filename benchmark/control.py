@@ -7,7 +7,9 @@ is the same additive-FFT Reed-Solomon code over the standard basis in
 place of the Cantor basis (reference/leopard.CONTROL_FIELDS), a
 maximum-distance-separable code as good as the protocol's for recovery
 but not the bytes consensus commits to: the shortcut a faster encoder
-might take. Every count the check compares is printed per seed.
+might take. In a withheld-square cell the control repairs the square
+with the plain reference decoder over that code (reference/decode.py).
+Every count the check compares is printed per seed.
 
     python3 -m benchmark.control --workload <cell> --seeds 11,12,13 [--seconds 1]
 
@@ -29,6 +31,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmark import harness, spec  # noqa: E402
+from benchmark.reference import decode  # noqa: E402
 from benchmark.reference import eds as ref_eds  # noqa: E402
 
 
@@ -50,6 +53,19 @@ def control_entry(batched: bool):
     return entry
 
 
+def control_repair_entry():
+    """An entry(symbols, present, row_roots, col_roots, device) that
+    answers with the square the control's code decodes."""
+
+    def entry(symbols, present, row_roots, col_roots, device=None):
+        dev = device or "cuda"
+        sq = decode.repair(torch.from_numpy(np.array(symbols)).to(dev), torch.from_numpy(np.array(present)).to(dev),
+                           control=True)
+        return sq.cpu().numpy()
+
+    return entry
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
@@ -60,9 +76,10 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("benchmark.control: no CUDA card", file=sys.stderr)
         return 2
+    withheld = cell.traffic.get("handover") == "withheld-quadrant"
     for seed in (int(s) for s in args.seeds.split(",")):
-        r = harness.run(cell, seed, args.seconds, False, "cuda", time.perf_counter(),
-                        entry=control_entry(bool(cell.traffic["batched"])))
+        entry = control_repair_entry() if withheld else control_entry(bool(cell.traffic["batched"]))
+        r = harness.run(cell, seed, args.seconds, False, "cuda", time.perf_counter(), entry=entry)
         print(json.dumps({"control": cell.name, "seed": seed, "correct": r["correct"],
                           "checked_blocks": r["_counted"]["checked_blocks"], "checks": r["checks"]}), flush=True)
     return 0

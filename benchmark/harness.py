@@ -3,20 +3,26 @@ profiled segments), the check against the reference, and the result.
 
 Set-up is everything from process start to the window: imports, the
 kernels' load from the build cache (their build, in a run that compiles),
-the input pool, and the mix's warm calls, which build the operands of the
-cell's k and warm its one shape. The window is a closed loop of calls
-for ``seconds``: the rate is every block over the whole window, the tail
-is over every call. A traced run profiles ``trace_calls`` calls twice:
-once plainly, for device busy and idle time, and once with Python stacks,
-to place device time on layers (the stack tracer slows the host, so the
-second segment's idle time is not used).
+the input pool (with a withheld-square mix, the first blocks' reference
+squares), and the mix's warm calls, which build the operands of the
+cell's k and warm its shapes; the result's counted fields time each
+part. The window is a closed loop of calls for ``seconds``: the rate is
+every block over the whole window, the tail is over every call. A traced
+run first makes calls until the check's sample is full and one more,
+then profiles ``trace_calls`` calls twice: once plainly, for device busy
+and idle time, and once with Python stacks, to place device time on
+layers (the stack tracer slows the host, so the second segment's idle
+time is not used).
 
 Blocks to check are drawn from the seed, by reservoir over every block
 handed over after set-up (``Sample``). Their outputs are read once the
 window has closed and the memory peak is taken; the reference then
-recomputes each from its pool square and stamp, on the first device. The
+recomputes each from its pool square and stamp, on the first device. In
+a withheld-square cell the entry is first called four times more on one
+sampled block's hand-over, each with one root altered, and has to raise. The
 memory peak is the program's: the sample's bytes on a card are held
-constant from before the window and taken off it.
+constant from before the window and taken off it; where the driver
+prepares hand-overs on the card, it reads the peak over its calls alone.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import traceback
 import numpy as np
 import torch
 
-from benchmark import check, spec as spec_mod, trace, work
+from benchmark import check, spans, spec as spec_mod, trace, work
 from benchmark.inputs import pool as pool_mod
 from benchmark.traffic import Driver
 
@@ -166,6 +172,13 @@ def _peak(devices, held: dict[int, int] | None = None) -> int:
                default=0)
 
 
+def _program_peak(driver: Driver, devices, held: dict[int, int] | None = None) -> int:
+    """The program's peak since the last reading: the driver's, where it
+    reads one, else the cards' (`_peak`)."""
+    peak = driver.take_peak()
+    return _peak(devices, held) if peak is None else peak
+
+
 def _xfer_bytes() -> int:
     from celestia_app_tpu_torch.obs import xfer
 
@@ -184,16 +197,21 @@ def run(cell: spec_mod.Cell, seed: int, seconds: float, traced: bool, device, t_
 
     from celestia_app_tpu_torch import cuda_build
 
+    marks = [time.perf_counter()]
     if devices[0].type == "cuda":
         cuda_build.build()
+    marks.append(time.perf_counter())
     pool = pool_mod.make(config, int(mix["pool"]), seed)
-    driver = Driver(mix, pool, call_device, entry=entry)
+    driver = Driver(mix, pool, call_device, entry=entry, seed=seed, devices=devices)
+    driver.ready(int(mix["warm_calls"]))
+    _sync(devices)
+    marks.append(time.perf_counter())
     sample = Sample(int(mix["check_blocks"]), seed)
     entries: list = []
     for _ in range(int(mix["warm_calls"])):
         _, entries, _ = driver.call()
     _sync(devices)
-    setup_peak = _peak(devices)
+    setup_peak = _program_peak(driver, devices)
     if entries:
         sample.prepare(entries[0])
     del entries
@@ -201,6 +219,8 @@ def run(cell: spec_mod.Cell, seed: int, seconds: float, traced: bool, device, t_
         if d.type == "cuda":
             torch.cuda.reset_peak_memory_stats(d)
     setup_s = time.perf_counter() - t_process
+    setup_split = {"imports": marks[0] - t_process, "kernel_load": marks[1] - marks[0],
+                   "input_pool": marks[2] - marks[1], "warm_calls": t_process + setup_s - marks[2]}
 
     state = {"blocks": 0, "calls": 0, "failed": 0, "latencies": [], "ends": []}
     marked = torch.profiler.record_function if traced else (lambda _name: contextlib.nullcontext())
@@ -233,17 +253,33 @@ def run(cell: spec_mod.Cell, seed: int, seconds: float, traced: bool, device, t_
             _sync(devices)
             window_s = time.perf_counter() - t0
         else:
+            # calls until the check's sample is full, and one more: the outputs
+            # it keeps each hold a host block of the program's, which makes the
+            # program allocate a new one (cudaHostAlloc) in the next call, until
+            # the first output it drops frees one; no segment should time that
+            while sample.seen <= sample.size:
+                one_call()
             n = int(mix["trace_calls"])
+            driver.ready(n)
             crossed0 = _xfer_bytes()
             plain, plain_blocks = trace.capture(lambda: sum(one_call() for _ in range(n)), False, devices)
             crossed = _xfer_bytes() - crossed0
+            driver.ready(n)
             staged, staged_blocks = trace.capture(lambda: sum(one_call() for _ in range(n)), True, devices)
     except _Stop:
         _sync(devices)
-    window_peak = _peak(devices, sample.held)
+    window_peak = _program_peak(driver, devices, sample.held)
     peak = max(setup_peak, window_peak)
 
     outputs = sample.outputs(log)
+    withheld = driver.withheld
+    limits = dict(check.LIMITS)
+    if withheld is not None:
+        # a sampled block (else the last handed over), its hand-over prepared again
+        t_probe = time.perf_counter()
+        altered = driver.altered_roots(outputs[0][0] if outputs else driver.seq, seed)
+        probe_s = time.perf_counter() - t_probe
+        limits.update(check.HANDOVER_LIMITS)
     driver = None
     gc.collect()
     if devices[0].type == "cuda":
@@ -253,7 +289,9 @@ def run(cell: spec_mod.Cell, seed: int, seconds: float, traced: bool, device, t_
     totals = check.total(check.compare([(got, pool.rebuild(index, seq)) for seq, index, got in outputs],
                                        devices[0]))
     check_s = time.perf_counter() - t_check
-    correct = state["failed"] == 0 and bool(outputs) and check.passed(totals)
+    if withheld is not None:
+        totals["altered_roots_accepted"] = altered.count("accepted")
+    correct = state["failed"] == 0 and bool(outputs) and check.passed(totals, limits)
 
     metrics = {}
     dev_info = {"platform": "gpu" if devices[0].type == "cuda" else devices[0].type,
@@ -261,7 +299,10 @@ def run(cell: spec_mod.Cell, seed: int, seconds: float, traced: bool, device, t_
                 "count": len(devices), "memory_peak_bytes": int(peak)}
     counted = {"cell": cell.name, "calls": state["calls"], "blocks": state["blocks"],
                "checked_blocks": [[seq, index] for seq, index, _ in outputs], "check_s": check_s,
-               "setup_s": setup_s, "sample_held_bytes": sample.held}
+               "setup_s": setup_s, "setup_split_s": setup_split, "sample_held_bytes": sample.held}
+    if withheld is not None:
+        counted.update(checked_quadrants=[withheld.quadrants[seq] for seq, _, _ in outputs],
+                       prepare_fill_s=withheld.fill_s, altered_roots=altered, altered_roots_s=probe_s)
     if state["failed"] == 0 and not traced:
         win = Window(cell, k, bool(mix["batched"]), setup_s, window_s, state["blocks"], state["calls"],
                      state["latencies"])
@@ -289,10 +330,13 @@ def run(cell: spec_mod.Cell, seed: int, seconds: float, traced: bool, device, t_
         result["breakdown"] = {"device_ops": trace.device_ops(staged), "idle_gaps": trace.idle_gaps(plain),
                                "unplaced_share": unplaced}
         counted.update(plain_blocks=plain_blocks, staged_blocks=staged_blocks, unplaced_share=unplaced,
-                       kept_copy_s=plain.kept_s + staged.kept_s, trace_parse_s=plain.parse_s + staged.parse_s)
+                       calls_before_segments=state["calls"] - 2 * int(mix["trace_calls"]),
+                       kept_copy_s=plain.kept_s + staged.kept_s, trace_parse_s=plain.parse_s + staged.parse_s,
+                       prepared_device_s=plain.prepared_s + staged.prepared_s,
+                       prepared_host_s=[spans.total(seg.excluded) / 1e6 for seg in (plain, staged)])
     result = {"correct": correct, "attempted": state["blocks"] + state["failed"], "failed": state["failed"],
               "metrics": metrics, "device": dev_info, **result,
-              "checks": {name: {"value": totals[name], "limit": limit} for name, limit in check.LIMITS.items()}}
+              "checks": {name: {"value": totals[name], "limit": limit} for name, limit in limits.items()}}
     result["_counted"] = counted
     return result
 

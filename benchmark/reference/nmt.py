@@ -59,23 +59,20 @@ def _hash(hash_fn: HashFn, msgs: torch.Tensor) -> torch.Tensor:
 LEAVES_PER_STEP = 1 << 20  # leaf messages built and hashed at once (568 MB at 542 B)
 
 
-def axis_roots(eds: torch.Tensor, hash_fn: HashFn) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, 2k, 2k, 512) uint8 squares -> (row roots, column roots), (B, 2k,
-    90) each. Every leaf is hashed once (a cell is the same leaf in its row
-    and its column tree); every square's trees reduce together."""
-    b, two_k = eds.shape[0], eds.shape[1]
-    ns = leaf_namespaces(eds)
-    flat_ns, flat_shares = ns.reshape(-1, NS), eds.reshape(-1, eds.shape[-1])
-    leaf_v = torch.empty((flat_ns.shape[0], 32), dtype=torch.uint8, device=eds.device)
-    for lo in range(0, flat_ns.shape[0], LEAVES_PER_STEP):
+def leaf_hashes(ns: torch.Tensor, shares: torch.Tensor, hash_fn: HashFn) -> torch.Tensor:
+    """(N, 29) namespaces and (N, 512) shares -> (N, 32) leaf digests."""
+    out = torch.empty((ns.shape[0], 32), dtype=torch.uint8, device=shares.device)
+    for lo in range(0, ns.shape[0], LEAVES_PER_STEP):
         hi = lo + LEAVES_PER_STEP
-        leaf_v[lo:hi] = hash_fn(_prefixed(0, flat_ns[lo:hi], flat_shares[lo:hi]))
-    leaf_v = leaf_v.view(b, two_k, two_k, 32)
-    # each square's 2k row trees, then its 2k column trees: (B * 4k, 2k leaves, .)
-    mins = torch.cat([ns, ns.transpose(1, 2)], dim=1).reshape(b * 2 * two_k, two_k, NS)
-    vs = torch.cat([leaf_v, leaf_v.transpose(1, 2)], dim=1).reshape(b * 2 * two_k, two_k, 32)
+        out[lo:hi] = hash_fn(_prefixed(0, ns[lo:hi], shares[lo:hi]))
+    return out
+
+
+def tree_roots(mins: torch.Tensor, vs: torch.Tensor, hash_fn: HashFn) -> torch.Tensor:
+    """(T, 2k, 29) leaf namespaces and (T, 2k, 32) leaf digests of T trees
+    -> their (T, 90) roots, every tree reduced together."""
     maxs = mins
-    parity = torch.tensor(list(PARITY), dtype=torch.uint8, device=eds.device)
+    parity = torch.tensor(list(PARITY), dtype=torch.uint8, device=vs.device)
     while mins.shape[1] > 1:
         lmin, rmin = mins[:, 0::2], mins[:, 1::2]
         lmax, rmax = maxs[:, 0::2], maxs[:, 1::2]
@@ -86,7 +83,20 @@ def axis_roots(eds: torch.Tensor, hash_fn: HashFn) -> tuple[torch.Tensor, torch.
         bigger = torch.where(_less(lmax, rmax).unsqueeze(-1), rmax, lmax)
         maxs = torch.where(l_parity, parity, torch.where(r_parity, lmax, bigger))
         mins = torch.where(_less(lmin, rmin).unsqueeze(-1), lmin, rmin)
-    roots = torch.cat([mins[:, 0], maxs[:, 0], vs[:, 0]], dim=-1).view(b, 2 * two_k, -1)
+    return torch.cat([mins[:, 0], maxs[:, 0], vs[:, 0]], dim=-1)
+
+
+def axis_roots(eds: torch.Tensor, hash_fn: HashFn) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, 2k, 2k, 512) uint8 squares -> (row roots, column roots), (B, 2k,
+    90) each. Every leaf is hashed once (a cell is the same leaf in its row
+    and its column tree); every square's trees reduce together."""
+    b, two_k = eds.shape[0], eds.shape[1]
+    ns = leaf_namespaces(eds)
+    leaf_v = leaf_hashes(ns.reshape(-1, NS), eds.reshape(-1, eds.shape[-1]), hash_fn).view(b, two_k, two_k, 32)
+    # each square's 2k row trees, then its 2k column trees: (B * 4k, 2k leaves, .)
+    mins = torch.cat([ns, ns.transpose(1, 2)], dim=1).reshape(b * 2 * two_k, two_k, NS)
+    vs = torch.cat([leaf_v, leaf_v.transpose(1, 2)], dim=1).reshape(b * 2 * two_k, two_k, 32)
+    roots = tree_roots(mins, vs, hash_fn).view(b, 2 * two_k, -1)
     return roots[:, :two_k], roots[:, two_k:]
 
 

@@ -33,7 +33,7 @@ def _no_result(stdout: str) -> bool:
     return True
 
 
-@pytest.mark.parametrize("cell", ["v3-k128.catchup-b8", "bigblock-k512.height-4chip"])
+@pytest.mark.parametrize("cell", ["v3-k128.catchup-b8", "bigblock-k512.height-4chip", "v3-k128.repair-quadrant"])
 def test_no_card_no_result(cell):
     p = _run(REPO, cell)
     assert p.returncode == 2 and _no_result(p.stdout), p.stderr

@@ -10,7 +10,7 @@ import time
 
 import pytest
 
-from benchmark import harness, spec, trace
+from benchmark import harness, spans, spec, trace
 from benchmark.tests.tiny import BENCH, REPO, make_bench_dir
 
 SPEC = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -46,6 +46,8 @@ def test_the_spec_keeps_to_the_contract():
     for m in SPEC["per_layer"]:
         assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
         assert m["moves"] in e2e and (BENCH / "metrics" / f"{m['name']}.py").exists() and _line(m["layer"])
+        # every cell that reads the metric reports the end-to-end metric it moves
+        assert set(m.get("workloads", cells)) <= set(e2e[m["moves"]].get("workloads", cells))
         assert "roofline" not in m["name"] or (m["name"].endswith("_roofline") and m["unit"] == "%")
     for m in SPEC["end_to_end"]:
         assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
@@ -57,8 +59,12 @@ def test_the_spec_keeps_to_the_contract():
 @pytest.mark.parametrize("name", [w["name"] for w in SPEC["workloads"]])
 def test_every_cell_loads_with_its_readers(name):
     cell = spec.load(name)
-    assert {"setup_s", "throughput_mib_s"} <= {m["name"] for m in cell.end_to_end}
-    assert cell.per_layer
+    e2e = {m["name"] for m in cell.end_to_end}
+    assert "setup_s" in e2e and len(e2e) >= 2
+    # a withheld-square cell reports the repair's own rate, every other cell the window's
+    repairs = cell.traffic.get("handover") == "withheld-quadrant"
+    assert ("repair_mib_s" in e2e) == repairs and ("throughput_mib_s" in e2e) == (not repairs)
+    assert cell.per_layer and all(m["moves"] in e2e for m in cell.per_layer)
     for m in cell.end_to_end:
         assert callable(cell.reader(m, "e2e"))
     for m in cell.per_layer:
@@ -149,3 +155,60 @@ def test_an_operation_no_layer_claims_is_unplaced():
                                "args": {"correlation": 9, "device": 0}}]), with_frames=True)
     trace.place(seg.ops, spec.layers())
     assert seg.ops[0].layer is None and trace.layer_seconds(seg) == {None: 5e-6}
+
+
+def test_a_hand_overs_preparation_is_cut_out_of_the_trace():
+    """Operations launched inside ``benchmark.prepare`` are left out, and
+    its interval is cut out of the window: no busy, idle or layer time."""
+    events = [{"cat": "user_annotation", "name": trace.PREPARE, "ts": 100, "dur": 300, "tid": 1},
+              {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 110, "dur": 2, "tid": 1,
+               "args": {"correlation": 6}},
+              {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 500, "dur": 2, "tid": 1,
+               "args": {"correlation": 7}},
+              {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 20, "dur": 2, "tid": 1,
+               "args": {"correlation": 8}},
+              {"cat": "kernel", "name": "reference", "ts": 120, "dur": 200, "args": {"correlation": 6, "device": 0}},
+              {"cat": "kernel", "name": "k", "ts": 510, "dur": 50, "args": {"correlation": 7, "device": 0}},
+              # the program's operation runs on into the preparation's interval
+              {"cat": "kernel", "name": "j", "ts": 30, "dur": 100, "args": {"correlation": 8, "device": 0}}]
+    for with_frames in (False, True):
+        seg = trace.parse(_trace(events), with_frames=with_frames)
+        assert [op.name for op in seg.ops] == ["k", "j"] and seg.prepared_s == 200e-6
+        assert seg.excluded == [(100, 400)] and seg.window_s == 700e-6
+        assert seg.busy_spans() == {0: [(30, 100), (510, 560)]} and seg.busy_s() == {0: 120}
+        assert [g[1] for g in trace.idle_gaps(seg)] == [440e-6, 110e-6, 30e-6]
+        assert trace.layer_seconds(seg) == {None: pytest.approx(150e-6)}
+
+
+def _merged_by_the_old_loop(intervals):
+    """``busy_spans``' merge loop as it stood before it called spans.union."""
+    intervals = sorted(intervals)
+    out = [list(intervals[0])]
+    for a, b in intervals[1:]:
+        if a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
+@pytest.mark.parametrize("intervals", [
+    [(10, 50), (40, 80), (70, 90)],  # overlapping
+    [(10, 90), (20, 30), (40, 50), (15, 95)],  # nested
+    [(10, 20), (20, 30), (30, 40), (50, 60)],  # touching
+    [(5, 10), (300, 310), (0, 2), (8, 9), (9, 12), (100, 200), (150, 150), (120, 130)],
+])
+def test_busy_spans_merge_through_spans_union(intervals):
+    ops = [trace.Op(0, a, b - a, "k", None) for a, b in intervals]
+    seg = trace.Segment((0.0, 1000.0), ops)
+    want = _merged_by_the_old_loop([(a, b) for a, b in intervals if b > a])
+    assert seg.busy_spans() == {0: spans.union(intervals)} == {0: want}
+
+
+def test_an_operation_of_the_repair_module_is_placed_on_the_repair_layer():
+    ops = [trace.Op(0, 0, 5, "void at::native::index_elementwise_kernel<128, 4>(x)", "da/repair.py:_put_missing"),
+           trace.Op(0, 5, 5, "(anonymous namespace)::rs_extend_kernel(x)", "ops/rs_kernel.py:extend_lines"),
+           trace.Op(0, 10, 5, "void at::native::reduce_kernel<512, 1>(x)", "ops/nmt.py:eds_axis_roots"),
+           trace.Op(0, 15, 5, "Memcpy DtoH (Device -> Pinned)", "obs/xfer.py:to_host")]
+    trace.place(ops, spec.layers())
+    assert [op.layer for op in ops] == ["repair", "rs", "glue", "copy"]

@@ -9,7 +9,7 @@ import torch
 
 from benchmark import work
 from benchmark.reference import eds as ref_eds
-from benchmark.reference import sha256
+from benchmark.reference import nmt, sha256
 
 
 @pytest.mark.parametrize("k", [2, 4, 8])
@@ -22,8 +22,12 @@ def test_sha256_compressions_equal_those_of_a_hashed_block(k):
         return sha256.digest_hashlib(msgs)
 
     ods = np.random.default_rng(k).integers(0, 256, (1, k, k, 512), dtype=np.uint8)
-    ref_eds.commit(torch.from_numpy(ods), hash_fn=counting)
+    c = ref_eds.commit(torch.from_numpy(ods), hash_fn=counting)
     assert work.sha256_work(k) == (counted["compressions"], counted["messages"])
+    # a repair verifies the 4k axis roots and computes no data root
+    counted.update(compressions=0, messages=0)
+    nmt.axis_roots(c.eds, counting)
+    assert work.sha256_work(k, data_root=False) == (counted["compressions"], counted["messages"])
 
 
 def test_least_times_copy_the_chip_smoke_arithmetic():
@@ -41,4 +45,4 @@ def test_least_times_copy_the_chip_smoke_arithmetic():
 def test_both_layers_are_bound_by_operations_at_the_cells_sizes(k):
     bits = 8 if k <= 128 else 16
     assert work.extension_least_s(k, bits)[1] == "operations"
-    assert work.sha256_least_s(k)[1] == "operations"
+    assert work.sha256_least_s(k)[1] == work.sha256_least_s(k, data_root=False)[1] == "operations"

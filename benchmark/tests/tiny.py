@@ -19,7 +19,9 @@ TINY_MEMPOOL = {"txs": 5, "tx_bytes": [150, 400], "namespaces": 4, "blobs_per_pf
 def make_bench_dir(root: Path, extra_traffic: dict | None = None) -> Path:
     """A benchmark directory under `root`: the real traffic, e2e, metrics
     and layers files, a k = 8 configuration, and a BENCHMARK.json whose
-    cells ``tiny.catchup`` and ``tiny.height`` run the real mixes on it."""
+    cells ``tiny.catchup``, ``tiny.height`` and ``tiny.repair`` run the
+    real mixes on it. A metric of the repair cell is the tiny repair
+    cell's; every other metric applies to every tiny cell."""
     for sub in ("traffic", "metrics", "e2e", "layers"):
         shutil.copytree(BENCH / sub, root / sub)
     (root / "configs").mkdir()
@@ -32,9 +34,11 @@ def make_bench_dir(root: Path, extra_traffic: dict | None = None) -> Path:
     spec["workloads"] = [
         {"name": "tiny.catchup", "config": "tiny-k8", "traffic": "catchup-b8", "chips": 1, "why": "test"},
         {"name": "tiny.height", "config": "tiny-k8", "traffic": "height-serial", "chips": 1, "why": "test"},
+        {"name": "tiny.repair", "config": "tiny-k8", "traffic": "repair-quadrant", "chips": 1, "why": "test"},
     ]
     for m in spec["end_to_end"] + spec["per_layer"]:
-        m.pop("workloads", None)
+        if "v3-k128.repair-quadrant" in m.pop("workloads", ()):
+            m["workloads"] = ["tiny.repair"]
     for name, mix in (extra_traffic or {}).items():
         (root / "traffic" / f"{name}.json").write_text(json.dumps(mix))
     (root / "BENCHMARK.json").write_text(json.dumps(spec))

@@ -5,7 +5,10 @@ trace read back. Device operations are the ``kernel``, ``gpu_memcpy`` and
 ``gpu_memset`` events; the segment's window is the ``benchmark.segment``
 annotation around the calls and the final synchronize. Operations
 launched inside a ``benchmark.keep`` annotation (the check's copies of
-sampled squares) are the benchmark's own and are left out.
+sampled squares) are the benchmark's own and are left out. So are those
+launched inside a ``benchmark.prepare`` annotation (a withheld-square
+mix's hand-over, made between calls), and its interval besides: it is
+cut out of the window, so it counts in no busy, idle or layer time.
 
 With Python stacks on, each device operation is followed to its launch
 (the runtime or driver call of the same correlation id) and to the
@@ -32,10 +35,13 @@ from typing import Callable
 
 import torch
 
+from benchmark import spans
+
 PACKAGE = "celestia_app_tpu_torch/"
 SEGMENT = "benchmark.segment"
 CALL = "benchmark.call"  # around each call of the entry in a traced segment
 KEEP = "benchmark.keep"  # around the check's copies of sampled squares
+PREPARE = "benchmark.prepare"  # around a hand-over's preparation between calls
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -60,33 +66,26 @@ class Segment:
     launch_tid: int | None = None  # the thread that launched most device operations
     kept_s: float = 0.0  # device seconds of the check's own copies, left out of `ops`
     parse_s: float = 0.0  # host seconds spent exporting and reading the trace
+    # the hand-overs' preparation: its host intervals (disjoint, sorted, within
+    # the window), cut out of the window, and its device seconds, left out of `ops`
+    excluded: list = dataclasses.field(default_factory=list)
+    prepared_s: float = 0.0
 
     @property
     def window_s(self) -> float:
-        return (self.window[1] - self.window[0]) / 1e6
+        """The window's length, less the intervals cut out of it."""
+        return (self.window[1] - self.window[0] - spans.total(self.excluded)) / 1e6
 
     def busy_s(self) -> dict[int, float]:
         """Union of device operation intervals within the window, per device."""
-        return {dev: sum(b - a for a, b in spans) for dev, spans in self.busy_spans().items()}
+        return {dev: spans.total(busy) for dev, busy in self.busy_spans().items()}
 
     def busy_spans(self) -> dict[int, list[tuple[float, float]]]:
-        lo, hi = self.window
         by_dev = collections.defaultdict(list)
         for op in self.ops:
-            a, b = max(op.start, lo), min(op.start + op.dur, hi)
-            if b > a:
-                by_dev[op.device].append((a, b))
-        merged = {}
-        for dev, spans in by_dev.items():
-            spans.sort()
-            out = [list(spans[0])]
-            for a, b in spans[1:]:
-                if a <= out[-1][1]:
-                    out[-1][1] = max(out[-1][1], b)
-                else:
-                    out.append([a, b])
-            merged[dev] = [(a, b) for a, b in out]
-        return merged
+            by_dev[op.device].append((op.start, op.start + op.dur))
+        return {dev: spans.minus(spans.union(spans.clip(iv, self.window)), self.excluded)
+                for dev, iv in by_dev.items()}
 
 
 def _frame_key(name: str, root: str) -> str | None:
@@ -141,6 +140,9 @@ def parse(trace: dict, with_frames: bool) -> Segment:
     for events_ in (*py.values(), *host_ops.values()):
         events_.sort(key=lambda ev: (ev[0], -ev[1]))
     kept = _launched_inside(launches, host_ops, KEEP)
+    prepared = _launched_inside(launches, host_ops, PREPARE)
+    excluded = spans.clip(spans.union((a, b) for evs in host_ops.values() for a, b, name in evs
+                                      if name == PREPARE), window)
     frames: dict = {}
     if with_frames:
         wanted = collections.defaultdict(list)
@@ -151,26 +153,27 @@ def parse(trace: dict, with_frames: bool) -> Segment:
             for (ts, corr), stack in zip(items, _open_frames(py.get(tid, []), [ts for ts, _ in items])):
                 keys = [k for k in (_frame_key(n, PACKAGE) for n in reversed(stack)) if k]
                 frames[corr] = keys[0] if keys else None
-    out, kept_s = [], 0.0
+    out, kept_s, prepared_s = [], 0.0, 0.0
     for e, corr in ops:
         if corr in kept:
             kept_s += e.get("dur", 0.0) / 1e6
-            continue
-        out.append(Op(int(e.get("args", {}).get("device", 0)), e["ts"], e.get("dur", 0.0), e["name"],
-                      frames.get(corr)))
-    per_tid = collections.Counter(tid for corr, (_, tid) in launches.items() if corr not in kept)
+        elif corr in prepared:
+            prepared_s += e.get("dur", 0.0) / 1e6
+        else:
+            out.append(Op(int(e.get("args", {}).get("device", 0)), e["ts"], e.get("dur", 0.0), e["name"],
+                          frames.get(corr)))
+    per_tid = collections.Counter(tid for corr, (_, tid) in launches.items()
+                                  if corr not in kept and corr not in prepared)
     launch_tid = per_tid.most_common(1)[0][0] if per_tid else None
-    return Segment(window, out, dict(host_ops), launch_tid, kept_s)
+    return Segment(window, out, dict(host_ops), launch_tid, kept_s, excluded=excluded, prepared_s=prepared_s)
 
 
 def _launched_inside(launches: dict, host_ops: dict, annotation: str) -> set:
     """Correlation ids of the launches made inside an `annotation` on the
     same thread."""
-    spans = collections.defaultdict(list)
-    for tid, evs in host_ops.items():
-        spans[tid] = [(a, b) for a, b, name in evs if name == annotation]
+    inside = {tid: [(a, b) for a, b, name in evs if name == annotation] for tid, evs in host_ops.items()}
     return {corr for corr, (ts, tid) in launches.items()
-            if any(a <= ts <= b for a, b in spans.get(tid, ()))}
+            if any(a <= ts <= b for a, b in inside.get(tid, ()))}
 
 
 def place(ops: list[Op], layer_files: dict[str, dict]) -> None:
@@ -256,21 +259,19 @@ def _host_activity(segment: Segment, t: float) -> str:
 
 
 def idle_gaps(segment: Segment, top: int = 10) -> list[list]:
-    """The longest idle gaps of each device within the window, named by
-    what the launching thread was running at each gap's middle and by the
-    device operation the gap follows. Read them from a segment profiled
-    without Python stacks, which slow the host."""
+    """The longest idle gaps of each device within the window (the
+    intervals cut out of it excepted), named by what the launching thread
+    was running at each gap's middle and by the device operation the gap
+    follows. Read them from a segment profiled without Python stacks,
+    which slow the host."""
     gaps = []
-    lo, hi = segment.window
     last = collections.defaultdict(list)
     for op in segment.ops:
         last[op.device].append((op.start + op.dur, short_kernel(op.name)))
-    for dev, spans in segment.busy_spans().items():
+    for dev, busy in segment.busy_spans().items():
         ends = sorted(last[dev])
-        edges = [lo] + [x for span in spans for x in span] + [hi]
-        for a, b in zip(edges[0::2], edges[1::2]):
-            if b > a:
-                gaps.append((b - a, dev, a, (a + b) / 2, ends))
+        for a, b in spans.minus(spans.minus([segment.window], busy), segment.excluded):
+            gaps.append((b - a, dev, a, (a + b) / 2, ends))
     gaps.sort(key=lambda g: g[:3], reverse=True)
     out = []
     for length, dev, a, mid, ends in gaps[:top]:

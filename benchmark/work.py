@@ -42,24 +42,29 @@ def compressions(length: int) -> int:
     return (length + 9 + 63) // 64
 
 
-def sha256_work(k: int) -> tuple[int, int]:
+def sha256_work(k: int, data_root: bool = True) -> tuple[int, int]:
     """(compressions, messages) of one block's commitment:
     every EDS cell hashed once as an NMT leaf (0x00 || ns || share, 542
     bytes), the 4k trees' 2k - 1 inner nodes each (0x01 || two 90-byte
     children, 181 bytes), and the RFC-6962 tree over the 4k 90-byte roots
-    (4k leaves of 91 bytes, 4k - 1 inner nodes of 65 bytes)."""
+    (4k leaves of 91 bytes, 4k - 1 inner nodes of 65 bytes). Without
+    `data_root`, the 4k axis roots alone: what verifying a repaired square
+    against its committed roots needs at the least."""
     leaves = 4 * k * k
     inner = 4 * k * (2 * k - 1)
-    c = (leaves * compressions(1 + NS + SHARE) + inner * compressions(1 + 2 * (2 * NS + 32))
-         + 4 * k * compressions(1 + 2 * NS + 32) + (4 * k - 1) * compressions(1 + 2 * 32))
+    c = leaves * compressions(1 + NS + SHARE) + inner * compressions(1 + 2 * (2 * NS + 32))
+    if not data_root:
+        return c, leaves + inner
+    c += 4 * k * compressions(1 + 2 * NS + 32) + (4 * k - 1) * compressions(1 + 2 * 32)
     return c, leaves + inner + 4 * k + 4 * k - 1
 
 
-def sha256_least_s(k: int) -> tuple[float, str]:
-    """Least time of one block's SHA-256 work: its compressions against the
-    INT32 rate, or each block read once and each digest written once
-    against HBM, whichever is larger; and which of the two bounds it."""
-    c, msgs = sha256_work(k)
+def sha256_least_s(k: int, data_root: bool = True) -> tuple[float, str]:
+    """Least time of one block's SHA-256 work (`sha256_work`): its
+    compressions against the INT32 rate, or each block read once and each
+    digest written once against HBM, whichever is larger; and which of the
+    two bounds it."""
+    c, msgs = sha256_work(k, data_root)
     ops_s = c * SHA_OPS_PER_COMPRESSION / INT32_OPS_PER_S
     bytes_s = (c * 64 + msgs * 32) / HBM_BYTES_PER_S
     return max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
